@@ -1,4 +1,4 @@
-"""tpu-algames: a TPU-native engine for constrained dynamic games.
+"""tpu-algames: a batched JAX engine for constrained dynamic games.
 
 Brand-new JAX/XLA implementation of the ALGAMES capabilities
 (RoboticExplorationLab/Algames.jl): open-loop generalized Nash equilibria for
@@ -7,8 +7,9 @@ conditions with an augmented-Lagrangian treatment of inequality constraints.
 
 The public API mirrors the reference export manifest
 (``/root/reference/src/Algames.jl:20-165``) in snake_case; the architecture
-is TPU-first: static shapes, dense per-knot blocks, batched block-tridiagonal
-KKT factorization, the whole solver under ``jit``/``vmap``/``shard_map``.
+is accelerator-first: static shapes, dense per-knot blocks, batched
+block-tridiagonal KKT factorization, the whole solver under
+``jit``/``vmap``/``shard_map``.
 """
 
 from .core.spec import ProblemSpec, spec_from_model
@@ -45,5 +46,7 @@ from . import parallel  # noqa: E402  (registers ag.parallel.*)
 from . import active_set  # noqa: E402
 from .mpc import MPCResult, mpc_solve, mpc_solve_jit  # noqa: E402
 from . import profiling  # noqa: E402  (device traces, timed_solve/t_elap)
+from .runtime import (device_info, enable_compile_cache,  # noqa: E402
+                      kkt_method)
 
 __version__ = "0.1.0"

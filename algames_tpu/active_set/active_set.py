@@ -1,6 +1,6 @@
 """Equilibrium-subspace analysis: active-set extended KKT + nullspace.
 
-TPU-native equivalent of the reference active-set machinery
+JAX equivalent of the reference active-set machinery
 (``src/active_set/active_set_core.jl``, ``active_set_methods.jl``,
 ``active_set_stamp.jl``): the KKT system is extended with one scalar row per
 *unordered* colliding player pair per knot (the shared constraint value) and
@@ -149,7 +149,7 @@ def _pair_jacobians(prob: GameProblem, traj: PrimalDual, pairs):
 
 def extended_jacobian_knotrows(prob: GameProblem, traj: PrimalDual,
                                jb=None) -> jnp.ndarray:
-    """[Sv, Sh] extended Jacobian, assembled block-natively (VERDICT r3 #6).
+    """[Sv, Sh] extended Jacobian, assembled block-natively.
 
     Identical column order to :func:`extended_jacobian` (spec per-knot
     columns ++ appended ordered-pair duals) but base rows in PER-KNOT
@@ -160,7 +160,7 @@ def extended_jacobian_knotrows(prob: GameProblem, traj: PrimalDual,
     ~O(T·p^2) traced ``.at[].add`` updates of the reference-ordered builder
     become three einsum embeddings of the existing block-tridiagonal
     (D, U, L) blocks plus two static concats for the appended
-    rows/columns.  Jits in seconds at round4 scale (p=4, N=40) and vmaps
+    rows/columns.  Jits in seconds at the roundabout scale (p=4, N=40) and vmaps
     over trajectory batches.  Reference: ``active_set_methods.jl:130-170``.
     """
     spec = prob.spec
@@ -284,7 +284,7 @@ class NullSpaceMasked:
 
 def update_nullspace_masked(prob: GameProblem, traj: PrimalDual,
                             atol: float = 1e-10) -> NullSpaceMasked:
-    """TPU-first ``update_nullspace``: jits, vmaps, no host sync.
+    """Device-resident ``update_nullspace``: jits, vmaps, no host sync.
 
     Instead of gathering the data-dependent active submatrix
     ``J[vmask, hmask]`` (dynamic shapes — untraceable), build a FIXED-shape

@@ -1,6 +1,6 @@
 """Constraint-family kernels: pure eval/jacobian functions over knot batches.
 
-TPU-native equivalent of the reference constraint types
+JAX equivalent of the reference constraint types
 (``src/constraints/wall_constraint.jl``, ``cylinder_constraint.jl``,
 ``state_bound_constraint.jl``, ``control_bound_constraint.jl`` and the
 TrajectoryOptimization ``CollisionConstraint``/``CircleConstraint`` subset).
@@ -13,7 +13,7 @@ Each family is a small pytree of parameter arrays plus two pure functions
 where ``z`` is the stack of states (or controls) at the applied knots.  All
 constraints are Inequality-sense: feasible iff ``c <= 0``.  The reference
 kernels are already written in branch-free gated-arithmetic style (bool
-masks multiplied into values/Jacobians) — exactly what the VPU wants — so
+masks multiplied into values/Jacobians) — exactly what vector units want — so
 the math here is a direct vectorization over knots, never a port of any
 object hierarchy.
 
@@ -47,9 +47,6 @@ class CollisionParams:
 
 def collision_evaluate(par: CollisionParams, xs: jnp.ndarray) -> jnp.ndarray:
     d = xs[:, np.asarray(par.pxi)] - xs[:, np.asarray(par.pxj)]   # [K, d]
-    # radius reshaped (1, 1) rather than broadcast from rank 0: rank-0
-    # intermediates abort Mosaic inside Pallas kernels; identical
-    # values/shape either way.
     r2 = jnp.reshape(par.radius, (1, 1)) ** 2
     return r2 - jnp.sum(d * d, axis=-1)[:, None]                  # [K, 1]
 
@@ -62,11 +59,6 @@ def collision_jacobian(par: CollisionParams, xs: jnp.ndarray) -> jnp.ndarray:
     jac = jac.at[:, 0, pxi].set(-2.0 * d)
     jac = jac.at[:, 0, pxj].set(2.0 * d)
     return jac
-    # (A gather-free one-hot form — x @ (S_pxi - S_pxj) — is required to
-    # lower these inside the fused trial kernel (Mosaic supports only 2D
-    # gathers) but measured -7% on the XLA hot path (round 5, bench 54.5k
-    # -> 50.8k); swap back in from git history when the kernel's other
-    # Mosaic blockers (docs/PERF.md round-5 section) lift.)
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Game constraint container, AL state, and lifecycle updates.
 
-TPU-native equivalent of the reference ``GameConstraintValues`` plus the
+JAX equivalent of the reference ``GameConstraintValues`` plus the
 Altro ``ALConVal`` subset it relies on
 (``src/constraints/game_constraints.jl:5-53``,
 ``src/constraints/constraints_methods.jl:287-446``).
@@ -29,6 +29,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -361,12 +362,13 @@ def al_expansion_full(block: ConBlock, traj):
     w = block.lam + irho * c
     if J.shape[1] == 1:
         # Single-row constraints (collision/circle): elementwise outer
-        # products on the VPU — a C=1 dot costs MXU layout copies.
+        # products instead of a C=1 contraction.
         grad = J[:, 0, :] * w[:, 0, None]
         hess = (J[:, 0, :, None] * J[:, 0, None, :]) * irho[:, 0, None, None]
     else:
-        grad = jnp.einsum('kcd,kc->kd', J, w)
-        hess = jnp.einsum('kcd,kc,kce->kde', J, irho, J)
+        hi = jax.lax.Precision.HIGHEST
+        grad = jnp.einsum('kcd,kc->kd', J, w, precision=hi)
+        hess = jnp.einsum('kcd,kc,kce->kde', J, irho, J, precision=hi)
     return grad, hess, c
 
 

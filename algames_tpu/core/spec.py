@@ -1,6 +1,6 @@
 """Problem-shape specification and closed-form KKT layout.
 
-TPU-native replacement for the reference's ``ProblemSize`` plus the whole
+JAX replacement for the reference's ``ProblemSize`` plus the whole
 "stamp" indexing machinery (reference: ``src/struct/problem_size.jl:5-44``,
 ``src/core/stamp.jl``, ``src/core/newton_core.jl:40-89``).  Where the
 reference builds dictionaries of index vectors and SubArray views at problem

@@ -1,6 +1,6 @@
 """Primal-dual trajectory pytree and its lifecycle operations.
 
-TPU-native equivalent of the reference ``PrimalDualTraj``
+JAX equivalent of the reference ``PrimalDualTraj``
 (``src/struct/primal_dual_traj.jl:5-158``).  Instead of a vector of
 knot-point structs plus nested dual vectors, the trajectory is a flat pytree
 of stacked device arrays:

@@ -1,6 +1,6 @@
 """Game dynamics model base.
 
-TPU-native equivalent of the reference ``AbstractGameModel``
+JAX equivalent of the reference ``AbstractGameModel``
 (``src/dynamics/game_model.jl:1-7``).  A model is a *static* (hashable,
 frozen) dataclass carrying the player-interleaved index layout plus a pure
 ``dynamics(x, u) -> xdot`` continuous-time vector field written in jnp.

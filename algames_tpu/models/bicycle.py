@@ -1,6 +1,6 @@
 """p-player kinematic bicycle game.
 
-TPU-native equivalent of the reference ``BicycleGame``
+JAX equivalent of the reference ``BicycleGame``
 (``src/dynamics/bicycle.jl:15-43``).  Per-player state ``[x, y, v, psi]``,
 control ``[a, delta]``; slip angle ``beta = atan2(lr*tan(delta), lr+lf)``.
 Vectorized over the player axis.

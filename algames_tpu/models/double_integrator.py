@@ -1,6 +1,6 @@
 """p-player d-dimensional double integrator game.
 
-TPU-native equivalent of the reference ``DoubleIntegratorGame``
+JAX equivalent of the reference ``DoubleIntegratorGame``
 (``src/dynamics/double_integrator.jl:13-33``).  State = [positions (d*p,
 interleaved); velocities (d*p)], control = accelerations (d*p).  The vector
 field is the branch-free concatenation ``xdot = [x[d*p:], u]`` — a single

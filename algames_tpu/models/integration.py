@@ -1,6 +1,6 @@
 """Explicit integrators and discrete dynamics Jacobians.
 
-TPU-native replacement for the RobotDynamics subset the reference relies on
+JAX replacement for the RobotDynamics subset the reference relies on
 (``src/problem/local_quantities.jl:5-27``, ``src/problem/solver_methods.jl:17``):
 
 * ``rk2_step``  — explicit midpoint; used inside the Newton residual

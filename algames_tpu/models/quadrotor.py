@@ -1,6 +1,6 @@
 """p-player quadrotor game (12-state MRP attitude per player).
 
-TPU-native equivalent of the reference ``QuadrotorGame``
+JAX equivalent of the reference ``QuadrotorGame``
 (``src/dynamics/quadrotor.jl:21-206``).  Per-player state
 ``[x, y, z, mrp1..3, vx..vz, wx..wz]`` interleaved across players; control
 ``[w1..w4]`` rotor speeds with thrust clamp ``F = max(0, kf*w)``

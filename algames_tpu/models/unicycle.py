@@ -1,10 +1,10 @@
 """p-player unicycle game.
 
-TPU-native equivalent of the reference ``UnicycleGame``
+JAX equivalent of the reference ``UnicycleGame``
 (``src/dynamics/unicycle.jl:14-34``).  Per-player state ``[x, y, theta, v]``
 interleaved across players; control ``[omega, a]``.  The vector field is
 written as vectorized slices over the player axis — no per-player unrolling,
-everything fuses on the VPU.
+everything fuses into elementwise kernels.
 """
 from __future__ import annotations
 

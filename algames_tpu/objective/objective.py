@@ -1,6 +1,6 @@
 """Per-player game objectives: embedded LQR costs + smooth collision repulsion.
 
-TPU-native equivalent of the reference ``GameObjective`` / ``CollisionCost``
+JAX equivalent of the reference ``GameObjective`` / ``CollisionCost``
 (``src/objective/objective.jl:6-192``).  Per-player diagonal LQR costs on the
 player's own state/control slice are embedded into full-dimension diagonal
 vectors (``expand_vector``, ``src/objective/objective.jl:37-41``); collision
@@ -203,8 +203,7 @@ def cost_hessian(spec: ProblemSpec, obj: GameObjective, traj: PrimalDual):
     p, n, m, N, T = spec.p, spec.n, spec.m, spec.N, spec.T
     dtype = traj.x.dtype
     scale = _dt_scale(spec, dtype)
-    # Diagonal embeddings as eye-broadcast multiplies (diagonal scatters are
-    # slow partial-tile writes on TPU).
+    # Diagonal embeddings as eye-broadcast multiplies, not scatters.
     Qx = ((obj.Qd[:, None, :] * scale[None, :, None])[..., None]
           * jnp.eye(n, dtype=dtype))                         # [p, N, n, n]
     Ru = jnp.broadcast_to(
@@ -215,23 +214,6 @@ def cost_hessian(spec: ProblemSpec, obj: GameObjective, traj: PrimalDual):
         ch = ch * scale[None, :, None, None]
         for idx, i in enumerate(obj.pair_i):
             Qx = Qx.at[i].add(ch[idx])
-    return Qx, Ru
-
-
-def cost_hessian_diag(spec: ProblemSpec, obj: GameObjective,
-                      traj: PrimalDual):
-    """Diagonal-form cost Hessians: ``(Qx [p, N, n], Ru [p, T, m, m])`` with
-    the same dt/terminal scaling as :func:`cost_hessian`.  Only valid for a
-    pure-LQR objective (no CollisionCost terms) — the structured-Q Pallas
-    path asserts ``not obj.pair_i`` before using it."""
-    assert not obj.pair_i, "cost_hessian_diag requires a diagonal objective"
-    p, n, m, N, T = spec.p, spec.n, spec.m, spec.N, spec.T
-    dtype = traj.x.dtype
-    scale = _dt_scale(spec, dtype)
-    Qx = obj.Qd[:, None, :] * scale[None, :, None]           # [p, N, n]
-    Ru = jnp.broadcast_to(
-        ((obj.Rd * spec.dt)[:, :, None] * jnp.eye(m, dtype=dtype))[:, None],
-        (p, T, m, m))
     return Qx, Ru
 
 

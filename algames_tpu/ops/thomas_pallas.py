@@ -1,35 +1,43 @@
-"""Pallas TPU kernel: fused batched block-tridiagonal KKT sweep.
+"""Pallas kernel (Triton route): the fused block-tridiagonal KKT sweep.
 
 The XLA Schur-condensed Thomas sweep (``linear_solver.solve_tridiagonal_schur``)
-is dispatch-bound: ~10 small kernels per knot x T sequential scan steps.
-This kernel fuses the ENTIRE forward elimination + back substitution into two
-``pallas_call``s whose grid walks (batch-tile, knot); the recursion carry
-(G, y) lives in VMEM scratch that persists across the knot dimension of the
-grid, so per-knot state never touches HBM.
+is launch-bound on a GPU: every knot of its two ``lax.scan``s issues several
+small batched dots and a batched LU solve, a few hundred launches per Newton
+iteration at T = 20.  This module runs the same recursion as two
+``pallas_call``s — a forward elimination and a back substitution — with the
+knot loop *inside* the program.
 
-Layout: every operand is stored lane-last — ``[..., B]`` with the batch as
-the TPU lane dimension — so each per-lane small-matrix operation vectorizes
-across 128 scenarios on the VPU.  Per-lane matrix products are unrolled
-loops of rank-1 multiply-adds (dims n=O(12) are far below MXU tile size;
-the batch provides the parallel width instead).
+Layout: one program per scenario (the solver is written per scenario and
+``vmap`` turns the batch into the kernel's grid).  Every operand keeps the
+solver's natural ``[T, ...]`` layout; the kernel reads it with masked gather
+loads into power-of-two padded tiles, so no relayout happens in XLA.  The
+carry-independent per-knot blocks come from ``linear_solver.schur_blocks``,
+shared with the XLA path.
 
-The reduced (u, x) system is solved by Gaussian elimination WITH row
-partial pivoting (the round-4 default).  Pivot rows are selected per lane by
-a max-|entry| one-hot mask and "swapped" virtually — the rank-1 update is
-masked to unpivoted rows and the normalized pivot row is saved for a cheap
-back substitution — so the lane-last layout never needs a scatter or a
-per-lane gather.  Rationale (measured on the flagship KKT systems, f32):
+Per knot the forward program
 
-* the round-3 pivoting-free Gauss-Jordan loop loses ~1e-1 relative accuracy
-  at AL penalty mu=1e7 (``benchmarks/results/pallas_tpu_validation.json``):
-  Gauss-Jordan's forward error scales with cond(K) ~ mu, and the stable
-  pivot assignment is mu-dependent (LAPACK pivots the u columns with DYN
-  rows once mu*dt^2 >> 1), so no static ordering or equilibration fixes it;
-* partial-pivoted GE + back substitution tracks the pivoted LAPACK path
-  (~2e-4 at mu=1e7) at ~1.5x the elimination cost.
+1. forms the fill-in ``F = -A_t G_{t-1}`` as rank-1 updates whose operands
+   it reads back from the previous knot's output (``G`` never lives in
+   registers across knots, so no tile has to be re-indexed in registers);
+2. forms ``F Q``, ``F A_{t+1}^T`` and the RHS update from ``F`` staged in a
+   per-program scratch buffer;
+3. writes those into the dyn rows of a scratch copy of the augmented system
+   ``[K | RHS]`` and adds the carry-independent part;
+4. solves the (n+m)-square system by Gaussian elimination with row partial
+   pivoting — the pivot row is selected per scenario by an argmax over the
+   not-yet-used rows and swapped *virtually* (the rank-1 update is masked to
+   unpivoted rows and the normalized pivot row is saved), which is what
+   holds float32 accuracy at AL penalties up to 1e7 — followed by a
+   backward elimination on the saved unit-upper rows.  Control columns
+   are eliminated before state columns (see :func:`_pivoted_solve`).
 
-``pivot=False`` keeps the old Jordan loop for benchmarking; the reference's
-sparse LU is always pivoted (``src/problem/solver_methods.jl:87``).
+Blocks of a GPU grid run in parallel and in no order, so nothing is carried
+between programs; within a program, a ``debug_barrier`` orders every store
+to a scratch or output buffer before the loads that read it back.  Loads of
+buffers the kernel itself wrote are ``volatile`` (no stale L1 line).
+
+Contractions are explicit multiply-adds in the operand dtype (no ``tl.dot``,
+so no TF32 and float64 works as well as float32).
 """
 from __future__ import annotations
 
@@ -38,692 +46,300 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from ..problem.linear_solver import schur_blocks, schur_unpad
+
+# Warps per program.  One program solves one scenario; its tiles are a few
+# thousand elements, and most steps are reductions across one tile.  Two
+# warps give the shortest sweep for one program; one warp per program packs
+# more programs per SM, which wins once the grid fills the card.  Measured
+# end to end on an H100 (flagship, float32): 2 warps best at 128 scenarios
+# per call, 1 warp best at 4,096 (docs/PERF.md).
+def warps_for_batch(batch: int) -> int:
+    return 2 if batch <= 512 else 1
 
 
-def _mm(A, X):
-    """Per-lane matmul: A [r, k, L] x X [k, c, L] -> [r, c, L] via unrolled
-    rank-1 updates (k is a small static dim)."""
-    k = A.shape[1]
-    out = A[:, 0:1, :] * X[0:1, :, :]
-    for b in range(1, k):
-        out = out + A[:, b:b + 1, :] * X[b:b + 1, :, :]
-    return out
+def _pow2(x: int) -> int:
+    """Smallest power of two >= x (Triton tiles are powers of two)."""
+    return 1 << max(0, int(x) - 1).bit_length()
 
 
-def _reduced_solve(K, RHS, d, BL, dtype, pivot):
-    """Solve the per-knot reduced system K sol = RHS per lane.
-
-    ``pivot=True``: row-partial-pivoted GE + back substitution, all virtual:
-    the pivot row is selected per LANE by a one-hot over the max-|.|
-    unpivoted entry of the column, extracted by a masked reduce (no per-lane
-    gather), normalized, saved for back substitution, and the rank-1 update
-    is masked to the rows still in play (the -1 bias leaves the normalized
-    row in place); extraction/update run only over the not-yet-eliminated
-    columns.  ``pivot=False``: Gauss-Jordan without pivoting — cheaper but
-    its error grows with cond(K) ~ the AL penalty mu (module docstring).
-    """
-    R = RHS.shape[1]
-    Auga = jnp.concatenate([K, RHS], axis=1)           # [d, d+R, BL]
-    if pivot:
-        one = jnp.ones((), dtype)
-        used = jnp.zeros((d, BL), dtype)
-        rid = jax.lax.broadcasted_iota(jnp.int32, (d, BL), 0)
-        rows = []
-        Act = Auga
-        for i in range(d):
-            col = Act[:, 0, :]                         # [d, BL]
-            mag = jnp.where(used > 0, -one, jnp.abs(col))
-            mx = jnp.max(mag, axis=0, keepdims=True)
-            # first row attaining the max (iota/min-reduce tiebreak —
-            # cumsum has no Mosaic lowering)
-            cand = jnp.where(mag == mx, rid, d)
-            sel = jnp.min(cand, axis=0)                # [BL]
-            onehot = (rid == sel[None, :]).astype(dtype)
-            piv = jnp.sum(onehot * col, axis=0)        # [BL]
-            row = (jnp.sum(onehot[:, None, :] * Act, axis=0)
-                   / piv[None, :])                     # [d+R-i, BL]
-            colv = col * (one - used) - onehot
-            Act = (Act - colv[:, None, :] * row[None, :, :])[:, 1:, :]
-            used = used + onehot
-            rows.append(row)
-        # Back substitution in variable order: rows[i][0] is the unit
-        # pivot (column i), rows[i][j-i] the U entry at column j > i,
-        # rows[i][d-i:] the RHS part.
-        sol_rows = [None] * d
-        for i in range(d - 1, -1, -1):
-            acc = rows[i][d - i:]                      # [R, BL]
-            for j in range(i + 1, d):
-                acc = acc - rows[i][j - i][None, :] * sol_rows[j]
-            sol_rows[i] = acc
-        return jnp.stack(sol_rows, axis=0)             # [d, R, BL]
-    # Gauss-Jordan without pivoting: the pivot row is kept in place by
-    # biasing its multiplier by -1 (so the rank-1 update leaves exactly
-    # the normalized row) — no scatter needed.
-    row_ids = jax.lax.broadcasted_iota(jnp.int32, (d, 1), 0)
-    for i in range(d):
-        piv = Auga[i, i, :]
-        row = Auga[i] / piv[None, :]
-        onehot = (row_ids == i).astype(Auga.dtype)     # [d, 1]
-        col = Auga[:, i, :] - onehot
-        Auga = Auga - col[:, None, :] * row[None, :, :]
-    return Auga[:, d:, :]                              # [d, R, BL]
+def tile_dims(n: int, ms: int, p: int) -> dict:
+    """Padded tile sizes of the sweep for state width n, (padded) control
+    width ms and p players: ``NP`` pads n, ``PP`` pads p, ``DP`` pads the
+    d = n + ms unknowns of one knot, ``CP`` pads the d + p*n + 1 columns of
+    the augmented system ``[K | G | y]``."""
+    d = n + ms
+    return dict(NP=_pow2(n), PP=_pow2(p), DP=_pow2(d),
+                CP=_pow2(d + p * n + 1))
 
 
-def _make_fwd_kernel(T, n, m, p, R, BL, owner, pivot=True):
-    """``owner[j]`` = player owning control index j (natural row order).
+def _iota(shape, dim):
+    return lax.broadcasted_iota(jnp.int32, shape, dim)
 
-    The per-knot KKT precompute (``Kb``/``Rt`` of the round-2 design) is
-    fused INTO the kernel: XLA-side it cost ~2.4 ms/chunk of layout-change
-    copies + fusion intermediates (36% of device time in the r3 hlo_stats
-    profile) because every [B, T, ...]-layout intermediate had to be
-    re-laid-out lane-last for the custom call.  The kernel now takes the raw
-    Jacobian-block leaves, each transposed lane-last exactly once.
-    """
+
+def _oob(ref, idx, mask):
+    """Send the indices of masked lanes one past their dimension: the GPU
+    never touches them, the interpreter clamps loads and drops stores."""
+    return tuple(i if jnp.ndim(i) == 0
+                 else jnp.where(mask, i, jnp.int32(size))
+                 for i, size in zip(idx, ref.shape))
+
+
+def _load(ref, idx, mask, volatile=False):
+    """Masked gather load; masked lanes read 0."""
+    return plgpu.load(ref.at[_oob(ref, idx, mask)], mask=mask, other=0.0,
+                      volatile=volatile)
+
+
+def _store(ref, idx, val, mask):
+    """Masked scatter store."""
+    plgpu.store(ref.at[_oob(ref, idx, mask)], val, mask=mask)
+
+
+def _barrier(interpret):
+    if not interpret:
+        plgpu.debug_barrier()
+
+
+def _pivoted_solve(Aug, d, first, DP, CP):
+    """Solve ``Aug[:d, :d] X = Aug[:d, d:]`` in place.  Returns the tile
+    whose row j holds unknown j in the RHS columns (col >= d).
+
+    Columns are eliminated in the order ``first, ..., d-1, 0, ..., first-1``
+    (the control columns before the state columns: the state columns carry
+    the AL-penalty curvature, and pivoting them first loses float32
+    accuracy on ill-conditioned knots).  The pivot row for column c is
+    saved in row c of the result."""
+    dtype = Aug.dtype
+    rid1 = _iota((DP,), 0)
+    rid2 = _iota((DP, CP), 0)
+    cid2 = _iota((DP, CP), 1)
+    zero = jnp.zeros((), dtype)
+    # Elimination step of column c (the inverse of the column order).
+    step1 = jnp.where(rid1 >= first, rid1 - first, rid1 + (d - first))
+
+    def column(k):
+        return jnp.where(k < d - first, k + first, k - (d - first))
+
+    def elim(k, c):
+        A, U, used = c
+        i = column(k)
+        col = jnp.sum(jnp.where(cid2 == i, A, zero), axis=1)        # [DP]
+        mag = jnp.where(used, -1.0, jnp.abs(col))
+        sel = lax.argmax(mag, 0, jnp.int32)                         # first max
+        onehot = rid1 == sel
+        piv = jnp.sum(jnp.where(onehot, col, zero))
+        row = jnp.sum(jnp.where(onehot[:, None], A, zero), axis=0) / piv
+        # Pivot row keeps exactly the normalized row (multiplier piv - 1);
+        # used rows are untouched; every other row is eliminated.
+        colv = (jnp.where(used, zero, col)
+                - jnp.where(onehot, 1.0, zero))
+        A = A - colv[:, None] * row[None, :]
+        U = jnp.where(rid2 == i, row[None, :], U)                   # slot i
+        return A, U, used | onehot
+
+    used0 = rid1 >= d                                # padding rows never pivot
+    _, U, _ = lax.fori_loop(jnp.int32(0), jnp.int32(d), elim,
+                            (Aug, jnp.zeros_like(Aug), used0))
+
+    def back(k, U):
+        j = d - 1 - k
+        i = column(j)
+        row = jnp.sum(jnp.where(rid2 == i, U, zero), axis=0)        # [CP]
+        col = jnp.sum(jnp.where(cid2 == i, U, zero), axis=1)        # [DP]
+        return U - jnp.where(step1 < j, col, zero)[:, None] * row[None, :]
+
+    return lax.fori_loop(jnp.int32(0), jnp.int32(d), back, U)
+
+
+def _fwd_kernel(T, n, ms, p, interpret,
+                aug0_ref, a_ref, at1_ref, q_ref, b_ref,
+                g_ref, y_ref, fs_ref, s_ref):
+    """Forward elimination over the T knots of one scenario.
+
+    Inputs: aug0 [T, d, C] carry-independent ``[K | RHS]``; a [T, n, n]
+    (A_t); at1 [T, n, n] (A_{t+1}^T); q [T, p, n, n]; b [T, p, n] (statx
+    RHS).  Outputs: g [T, d, pn], y [T, d]; fs [NP, PP, NP] and s [DP, CP]
+    are per-program scratch."""
+    pn, d = p * n, n + ms
+    C = d + pn + 1
+    dims = tile_dims(n, ms, p)
+    NP, PP, DP, CP = dims["NP"], dims["PP"], dims["DP"], dims["CP"]
+    dtype = aug0_ref.dtype
+    zero = jnp.zeros((), dtype)
+
+    # [NP, PP, NP] index tiles: (row a, player i, col q)
+    a3, i3, q3 = _iota((NP, PP, NP), 0), _iota((NP, PP, NP), 1), \
+        _iota((NP, PP, NP), 2)
+    m3 = (a3 < n) & (i3 < p) & (q3 < n)
+    i2, q2 = _iota((PP, NP), 0), _iota((PP, NP), 1)
+    m2 = (i2 < p) & (q2 < n)
+    a1 = _iota((NP,), 0)
+    r1 = _iota((DP,), 0)
+    r2, c2 = _iota((DP, CP), 0), _iota((DP, CP), 1)
+    a_nn, b_nn = _iota((NP, NP), 0), _iota((NP, NP), 1)
+    m_nn = (a_nn < n) & (b_nn < n)
+
+    s_ref[...] = jnp.zeros((DP, CP), dtype)
+    _barrier(interpret)
+
+    def knot(t, carry):
+        have = t > 0
+        tp = jnp.maximum(t - 1, 0)
+
+        # 1. F = -A_t G_{t-1}[x rows]; dy = -A_t y_{t-1}[x rows].  The
+        # contraction loops are unrolled so that their loads, which do not
+        # depend on one another, are all in flight together.
+        F = jnp.zeros((NP, PP, NP), dtype)
+        dy = jnp.zeros((NP,), dtype)
+        for k in range(n):
+            acol = _load(a_ref, (t, a1, jnp.full((NP,), k)), a1 < n)
+            grow = _load(g_ref, (tp, jnp.full((PP, NP), k), i2 * n + q2),
+                         m2 & have, volatile=True)
+            yk = jnp.sum(_load(y_ref, (tp, jnp.full((NP,), k)),
+                               (a1 == 0) & have, volatile=True))
+            F = F - acol[:, None, None] * grow[None, :, :]
+            dy = dy - acol * yk
+        fs_ref[...] = F
+        _barrier(interpret)
+
+        # 2. FQ = sum_i F_i Q_i, dG_i = F_i A_{t+1}^T, dy += sum_i F_i a_i.
+        FQ3 = jnp.zeros((NP, PP, NP), dtype)
+        dG = jnp.zeros((NP, PP, NP), dtype)
+        for bc in range(n):
+            fb = plgpu.load(fs_ref.at[:, :, bc], volatile=True)    # [NP, PP]
+            at1 = _load(at1_ref, (t, jnp.full((NP,), bc), a1), a1 < n)
+            qb = _load(q_ref, (t, i2, jnp.full((PP, NP), bc), q2), m2)
+            ab = jnp.sum(_load(b_ref, (t, i2, jnp.full((PP, NP), bc)),
+                               m2 & (q2 == 0)), axis=1)            # [PP]
+            FQ3 = FQ3 + fb[:, :, None] * qb[None, :, :]
+            dG = dG + fb[:, :, None] * at1[None, None, :]
+            dy = dy + jnp.sum(fb * ab[None, :], axis=1)
+        FQ = jnp.sum(FQ3, axis=1)                                   # [NP, NP]
+
+        # 3. Dyn rows (ms + a) of the augmented system: FQ in the x columns,
+        # dG in the G columns, dy in the y column.
+        _store(s_ref, (ms + a_nn, b_nn), FQ, m_nn)
+        _store(s_ref, (ms + a3, d + i3 * n + q3), dG, m3)
+        _store(s_ref, (ms + a1, jnp.full((NP,), d + pn)), dy, a1 < n)
+        _barrier(interpret)
+        aug = (_load(aug0_ref, (t, r2, c2), (r2 < d) & (c2 < C))
+               + plgpu.load(s_ref.at[:, :], volatile=True))
+
+        # 4. Pivoted solve; store G_t (cols d..d+pn) and y_t (col d+pn).
+        sol = _pivoted_solve(aug, d, n, DP, CP)
+        _store(g_ref, (t, r2, c2 - d), sol,
+               (r2 < d) & (c2 >= d) & (c2 < d + pn))
+        _store(y_ref, (t, r1), jnp.sum(
+            jnp.where(c2 == d + pn, sol, zero), axis=1), r1 < d)
+        _barrier(interpret)
+        return carry
+
+    lax.fori_loop(jnp.int32(0), jnp.int32(T), knot, jnp.int32(0))
+
+
+def _bwd_kernel(T, n, ms, p, g_ref, yhat_ref, q_ref, at1_ref, b_ref, out_ref):
+    """Back substitution: x/u rows from the forward carry, multipliers in
+    closed form ``lam_{i,t} = Q_i x_t + A_{t+1}^T lam_{i,t+1} - a_{i,t}``.
+    Output [T, d + pn] per knot: (x, u, lam)."""
+    pn, d = p * n, n + ms
+    dims = tile_dims(n, ms, p)
+    NP, PP, DP = dims["NP"], dims["PP"], dims["DP"]
+    dtype = g_ref.dtype
+    zero = jnp.zeros((), dtype)
+
+    r3, i3, q3 = _iota((DP, PP, NP), 0), _iota((DP, PP, NP), 1), \
+        _iota((DP, PP, NP), 2)
+    i2, q2 = _iota((PP, NP), 0), _iota((PP, NP), 1)
+    m2 = (i2 < p) & (q2 < n)
+    r1 = _iota((DP,), 0)
+    ia, aa, ba = (_iota((PP, NP, NP), 0), _iota((PP, NP, NP), 1),
+                  _iota((PP, NP, NP), 2))
+    a_nn, b_nn = _iota((NP, NP), 0), _iota((NP, NP), 1)
+    sel_b, sel_r = _iota((NP, DP), 0), _iota((NP, DP), 1)
+
+    def knot(k, lam_next):
+        t = T - 1 - k
+        G = _load(g_ref, (t, r3, i3 * n + q3), (r3 < d) & (i3 < p) & (q3 < n))
+        yhat = _load(yhat_ref, (t, r1), r1 < d)
+        xu = yhat - jnp.sum(jnp.sum(G * lam_next[None, :, :], axis=2), axis=1)
+        # x as a [NP] vector on the contraction axis (xu rows 0..n).
+        x = jnp.sum(jnp.where(sel_b == sel_r, xu[None, :], zero), axis=1)
+        Qt = _load(q_ref, (t, ia, aa, ba), (ia < p) & (aa < n) & (ba < n))
+        at1 = _load(at1_ref, (t, a_nn, b_nn), (a_nn < n) & (b_nn < n))
+        a = _load(b_ref, (t, i2, q2), m2)
+        lam = (jnp.sum(Qt * x[None, None, :], axis=2)
+               + jnp.sum(at1[None, :, :] * lam_next[:, None, :], axis=2)
+               - a)                                                 # [PP, NP]
+        _store(out_ref, (t, r1), xu, r1 < d)
+        _store(out_ref, (t, d + i2 * n + q2), lam, m2)
+        return lam
+
+    lax.fori_loop(jnp.int32(0), jnp.int32(T), knot,
+                  jnp.zeros((PP, NP), dtype))
+
+
+def sweep(spec, jb, b_knots, interpret: bool = False, batch: int = 1):
+    """Per-scenario drop-in for ``solve_tridiagonal_schur``: ``jb`` leaves
+    [T, ...], ``b_knots`` [T, W] (the negated residual for a Newton step).
+    Returns the flat step [S].  Batch it with ``jax.vmap``: the batch
+    becomes the kernel grid, one program per scenario; ``batch`` is that
+    grid's size, which sets the warps per program."""
+    T, n, p = spec.T, spec.n, spec.p
     pn = p * n
-    d = n + m
-    W = n + m + pn
-    owner = np.asarray(owner)
-
-    def kernel(Q_ref, Ub_ref, Bm_ref, A_ref, AT_ref, b_ref,
-               G_out, y_out, G_sc, y_sc):
-        t = pl.program_id(1)
-
-        @pl.when(t == 0)
-        def _():
-            G_sc[...] = jnp.zeros(G_sc.shape, G_sc.dtype)
-            y_sc[...] = jnp.zeros(y_sc.shape, y_sc.dtype)
-
-        Q = Q_ref[0]           # [p, n, n, BL]
-        Ub = Ub_ref[0]         # [m, m, BL]
-        Bm = Bm_ref[0]         # [n, m, BL]
-        At = A_ref[0]          # [n, n, BL]  A_t (content at t=0 only ever
-        #                        multiplies the zeroed carries — no gate)
-        dtype = Q.dtype
-        # A_{t+1}^T, zero at the final knot (the clamped index map would
-        # otherwise re-read A_{T-1}).
-        gate = jnp.where(t < T - 1, 1.0, 0.0).astype(dtype)
-        At1T = AT_ref[0] * gate                            # [n, n, BL]
-        b = b_ref[0]           # [W, BL]
-        a = b[:pn]             # [pn, BL]
-        c = b[pn:pn + m]       # [m, BL]
-        d0 = b[pn + m:]        # [n, BL]
-        G_prev = G_sc[...]     # [n, pn, BL]  (x rows of the carry only)
-        y_prev = y_sc[...]     # [n, BL]
-
-        # ---- per-knot KKT precompute (fused; round-2 did this in XLA) ----
-        # Qsel[r] = Q[owner[r]]: static row gather of each control row's
-        # player Hessian block.
-        Qsel = jnp.concatenate(
-            [Q[int(owner[r])][None] for r in range(m)], axis=0)  # [m,n,n,BL]
-        # BtQ[r, c] = sum_k B[k, r] Q_owner(r)[k, c]   (statu-x coupling)
-        BtQ = Bm[0][:, None, :] * Qsel[:, 0]
-        for k in range(1, n):
-            BtQ = BtQ + Bm[k][:, None, :] * Qsel[:, k]     # [m, n, BL]
-        # bd[r, :] = sum_k B[k, r] At1T[k, :]; block-diagonal embed by the
-        # static owner mask, segment-concat along columns (no scatter).
-        bd = Bm[0][:, None, :] * At1T[0][None]
-        for k in range(1, n):
-            bd = bd + Bm[k][:, None, :] * At1T[k][None]    # [m, n, BL]
-        # (static masks materialize as captured constants, which pallas
-        # rejects — build the block-diagonal embed row-by-row instead)
-        cG = jnp.concatenate(
-            [jnp.concatenate(
-                [bd[r:r + 1] if owner[r] == i else bd[r:r + 1] * 0.0
-                 for r in range(m)], axis=0)
-             for i in range(p)], axis=1)                   # [m, pn, BL]
-        # cy[r] = c[r] + sum_k B[k, r] a_owner(r)[k]
-        Asel = jnp.concatenate(
-            [a[int(owner[r]) * n:(int(owner[r]) + 1) * n][:, None, :]
-             for r in range(m)], axis=1)                   # [n, m, BL]
-        cy = c + jnp.sum(Bm * Asel, axis=0)                # [m, BL]
-        Rt = jnp.concatenate([cG, cy[:, None, :]], axis=1)  # [m, R, BL]
-        ri = jax.lax.broadcasted_iota(jnp.int32, (n, n), 0)
-        ci = jax.lax.broadcasted_iota(jnp.int32, (n, n), 1)
-        neg_eye = -(ri == ci).astype(dtype)[:, :, None]
-
-        # F = -At @ G_prev  -> [n, pn, BL]
-        F = -_mm(At, G_prev)
-        # FQ = sum_i F_i Q_i
-        FQ = _mm(F[:, 0:n, :], Q[0])
-        for i in range(1, p):
-            FQ = FQ + _mm(F[:, i * n:(i + 1) * n, :], Q[i])
-
-        # K rows: [statu (m) | dyn (n)], cols: [u (m) | x (n)]  (u-first!)
-        K = jnp.concatenate([
-            jnp.concatenate([Ub, BtQ], axis=1),
-            jnp.concatenate([Bm, neg_eye + FQ], axis=1)], axis=0)
-
-        # RHS rows (statu, dyn): top Rt; bottom dG | dy.
-        dG = _mm(F[:, 0:n, :], At1T)
-        dGs = [dG]
-        for i in range(1, p):
-            dGs.append(_mm(F[:, i * n:(i + 1) * n, :], At1T))
-        dG = jnp.concatenate(dGs, axis=1)                  # [n, pn, BL]
-        Aty = _mm(At, y_prev[:, None, :])[:, 0, :]         # [n, BL]
-        Fa = _mm(F, a[:, None, :])[:, 0, :]                # [n, BL]
-        dy = d0 - Aty + Fa
-        RHS = jnp.concatenate(
-            [Rt, jnp.concatenate([dG, dy[:, None, :]], axis=1)], axis=0)
-
-        sol = _reduced_solve(K, RHS, d, BL, dtype, pivot)  # [d, R, BL]
-        Uu = sol[:m]                                       # u block (first)
-        X = sol[m:]                                        # x block
-
-        # lam rows of the sweep are NOT materialized: lam_t depends on the
-        # solved (x, u) and lam_{t+1} in closed form
-        #   lam_{i,t} = Q_i x_t + A_{t+1}^T lam_{i,t+1} - a_i
-        # so the backward pass reconstructs it as two vector products per
-        # player instead of the fwd pass solving p Q_i-by-R-column products
-        # (~1/3 of the fwd kernel's flops in the round-3 profile) and the
-        # [pn, pn] lam block of G never touching HBM (2/3 of G's bytes).
-        G_t = jnp.concatenate([X[:, :pn], Uu[:, :pn]], axis=0)   # [d, pn]
-        y_t = jnp.concatenate([X[:, pn], Uu[:, pn]], axis=0)     # [d]
-        G_sc[...] = X[:, :pn]     # only the x rows feed the next knot's F
-        y_sc[...] = X[:, pn]
-        G_out[0] = G_t
-        y_out[0] = y_t
-
-    return kernel
-
-
-def _make_bwd_kernel(T, n, m, p, BL):
-    pn = p * n
-    W = n + m + pn
-
-    def kernel(G_ref, yhat_ref, Q_ref, AT_ref, b_ref, y_out, lam_sc):
-        t = pl.program_id(1)           # walks 0..T-1 mapped to knots T-1..0
-
-        @pl.when(t == 0)
-        def _():
-            lam_sc[...] = jnp.zeros(lam_sc.shape, lam_sc.dtype)
-
-        G = G_ref[0]                   # [d, pn, BL]  (x, u) rows only
-        yhat = yhat_ref[0]             # [d, BL]
-        Q = Q_ref[0]                   # [p, n, n, BL]
-        dtype = Q.dtype
-        # A_{knot+1}^T, zero at the final knot (grid step 0 = knot T-1).
-        gate = jnp.where(t > 0, 1.0, 0.0).astype(dtype)
-        At1T = AT_ref[0] * gate        # [n, n, BL]
-        a = b_ref[0][:pn]              # [pn, BL]
-        lam_next = lam_sc[...]         # [pn, BL]
-
-        xu = yhat - _mm(G, lam_next[:, None, :])[:, 0, :]   # [d, BL]
-        x = xu[:n]
-        # lam_{i,t} = Q_i x_t + A_{t+1}^T lam_{i,t+1} - a_i  (closed form,
-        # the same linear combination the fwd lam rows of G used to encode).
-        lams = []
-        for i in range(p):
-            li = _mm(Q[i], x[:, None, :])[:, 0, :]          # [n, BL]
-            li = li + _mm(At1T,
-                          lam_next[i * n:(i + 1) * n][:, None, :])[:, 0, :]
-            lams.append(li - a[i * n:(i + 1) * n])
-        lam_t = jnp.concatenate(lams, axis=0)               # [pn, BL]
-        lam_sc[...] = lam_t
-        y_out[0] = jnp.concatenate([xu, lam_t], axis=0)     # [W, BL]
-
-    return kernel
-
-
-def _make_fwd_kernel_sq(T, n, m, p, R, BL, owner, w_owner, pivot=True):
-    """Structured-Q forward kernel: the statx Hessian arrives as
-    ``diag(q_i) + sum_k w_k w_k^T`` (``residual.StructuredQ``), so the
-    B^T Q and F Q contractions are diag-multiplies plus one dot+axpy per w
-    vector instead of dense [n, n] products, and the dense Q tensor never
-    exists (neither in HBM nor in the lane-last relayout)."""
-    pn = p * n
-    d = n + m
-    owner = np.asarray(owner)
-    NW = len(w_owner)
-
-    def kernel(q_ref, wv_ref, Ub_ref, Bm_ref, A_ref, AT_ref, b_ref,
-               G_out, y_out, G_sc, y_sc):
-        t = pl.program_id(1)
-
-        @pl.when(t == 0)
-        def _():
-            G_sc[...] = jnp.zeros(G_sc.shape, G_sc.dtype)
-            y_sc[...] = jnp.zeros(y_sc.shape, y_sc.dtype)
-
-        q = q_ref[0]           # [p, n, BL]
-        wv = wv_ref[0]         # [max(NW,1), n, BL]
-        Ub = Ub_ref[0]         # [m, m, BL]
-        Bm = Bm_ref[0]         # [n, m, BL]
-        At = A_ref[0]          # [n, n, BL]
-        dtype = q.dtype
-        gate = jnp.where(t < T - 1, 1.0, 0.0).astype(dtype)
-        At1T = AT_ref[0] * gate                            # [n, n, BL]
-        b = b_ref[0]
-        a = b[:pn]
-        c = b[pn:pn + m]
-        d0 = b[pn + m:]
-        G_prev = G_sc[...]     # [n, pn, BL]
-        y_prev = y_sc[...]     # [n, BL]
-
-        # BtQ[r] = B_col_r * q_owner(r) (+ rank-1 terms), elementwise.
-        btq_rows = []
-        for r in range(m):
-            o = int(owner[r])
-            acc = Bm[:, r, :] * q[o]                       # [n, BL]
-            for k in range(NW):
-                if w_owner[k] == o:
-                    # unrolled dot (Mosaic rejects multi_reduction over a
-                    # sublane dim of an offset slice)
-                    prod = Bm[:, r, :] * wv[k]             # [n, BL]
-                    bw = prod[0]
-                    for j in range(1, n):
-                        bw = bw + prod[j]                  # [BL]
-                    acc = acc + bw[None, :] * wv[k]
-            btq_rows.append(acc[None])
-        BtQ = jnp.concatenate(btq_rows, axis=0)            # [m, n, BL]
-
-        bd = Bm[0][:, None, :] * At1T[0][None]
-        for k in range(1, n):
-            bd = bd + Bm[k][:, None, :] * At1T[k][None]    # [m, n, BL]
-        cG = jnp.concatenate(
-            [jnp.concatenate(
-                [bd[r:r + 1] if owner[r] == i else bd[r:r + 1] * 0.0
-                 for r in range(m)], axis=0)
-             for i in range(p)], axis=1)                   # [m, pn, BL]
-        Asel = jnp.concatenate(
-            [a[int(owner[r]) * n:(int(owner[r]) + 1) * n][:, None, :]
-             for r in range(m)], axis=1)                   # [n, m, BL]
-        cy = c + jnp.sum(Bm * Asel, axis=0)
-        Rt = jnp.concatenate([cG, cy[:, None, :]], axis=1)  # [m, R, BL]
-        ri = jax.lax.broadcasted_iota(jnp.int32, (n, n), 0)
-        ci = jax.lax.broadcasted_iota(jnp.int32, (n, n), 1)
-        neg_eye = -(ri == ci).astype(dtype)[:, :, None]
-
-        F = -_mm(At, G_prev)                               # [n, pn, BL]
-        # FQ = sum_i F_i diag(q_i) + sum_k (F_{ow k} w_k) w_k^T
-        FQ = F[:, 0:n, :] * q[0][None, :, :]
-        for i in range(1, p):
-            FQ = FQ + F[:, i * n:(i + 1) * n, :] * q[i][None, :, :]
-        for k in range(NW):
-            o = w_owner[k]
-            Fw = _mm(F[:, o * n:(o + 1) * n, :],
-                     wv[k][:, None, :])[:, 0, :]           # [n, BL]
-            FQ = FQ + Fw[:, None, :] * wv[k][None, :, :]
-
-        K = jnp.concatenate([
-            jnp.concatenate([Ub, BtQ], axis=1),
-            jnp.concatenate([Bm, neg_eye + FQ], axis=1)], axis=0)
-
-        dG = _mm(F[:, 0:n, :], At1T)
-        dGs = [dG]
-        for i in range(1, p):
-            dGs.append(_mm(F[:, i * n:(i + 1) * n, :], At1T))
-        dG = jnp.concatenate(dGs, axis=1)                  # [n, pn, BL]
-        Aty = _mm(At, y_prev[:, None, :])[:, 0, :]
-        Fa = _mm(F, a[:, None, :])[:, 0, :]
-        dy = d0 - Aty + Fa
-        RHS = jnp.concatenate(
-            [Rt, jnp.concatenate([dG, dy[:, None, :]], axis=1)], axis=0)
-
-        sol = _reduced_solve(K, RHS, d, BL, dtype, pivot)
-        Uu = sol[:m]
-        X = sol[m:]
-        G_t = jnp.concatenate([X[:, :pn], Uu[:, :pn]], axis=0)
-        y_t = jnp.concatenate([X[:, pn], Uu[:, pn]], axis=0)
-        G_sc[...] = X[:, :pn]
-        y_sc[...] = X[:, pn]
-        G_out[0] = G_t
-        y_out[0] = y_t
-
-    return kernel
-
-
-def _make_bwd_kernel_sq(T, n, m, p, BL, w_owner):
-    pn = p * n
-    W = n + m + pn
-    NW = len(w_owner)
-
-    def kernel(G_ref, yhat_ref, q_ref, wv_ref, AT_ref, b_ref, y_out,
-               lam_sc):
-        t = pl.program_id(1)
-
-        @pl.when(t == 0)
-        def _():
-            lam_sc[...] = jnp.zeros(lam_sc.shape, lam_sc.dtype)
-
-        G = G_ref[0]
-        yhat = yhat_ref[0]
-        q = q_ref[0]           # [p, n, BL]
-        wv = wv_ref[0]         # [max(NW,1), n, BL]
-        dtype = q.dtype
-        gate = jnp.where(t > 0, 1.0, 0.0).astype(dtype)
-        At1T = AT_ref[0] * gate
-        a = b_ref[0][:pn]
-        lam_next = lam_sc[...]
-
-        xu = yhat - _mm(G, lam_next[:, None, :])[:, 0, :]
-        x = xu[:n]
-        # lam_i = diag(q_i) x + sum_{ow k = i} (w_k . x) w_k
-        #         + A_{t+1}^T lam_{i,t+1} - a_i
-        lams = []
-        for i in range(p):
-            li = q[i] * x
-            for k in range(NW):
-                if w_owner[k] == i:
-                    prod = wv[k] * x                       # [n, BL]
-                    wx = prod[0]
-                    for j in range(1, n):
-                        wx = wx + prod[j]                  # [BL]
-                    li = li + wx[None, :] * wv[k]
-            li = li + _mm(At1T,
-                          lam_next[i * n:(i + 1) * n][:, None, :])[:, 0, :]
-            lams.append(li - a[i * n:(i + 1) * n])
-        lam_t = jnp.concatenate(lams, axis=0)
-        lam_sc[...] = lam_t
-        y_out[0] = jnp.concatenate([xu, lam_t], axis=0)    # [W, BL]
-
-    return kernel
-
-
-def solve_thomas_pallas(spec, jb, b_knots, block_lanes: int = 128,
-                        interpret: bool = False, pivot: bool = True):
-    """Drop-in replacement for ``solve_tridiagonal_schur`` as two fused
-    Pallas kernels, batched: ``jb`` leaves and ``b_knots`` must carry a
-    leading batch axis [B, ...].  Returns [B, S].
-
-    Heterogeneous per-player mi (VERDICT r3 #4) is handled by pad-and-mask:
-    every player's control block is padded to max(mi) (player-major order)
-    with identity diagonal rows and zero couplings, so the padded unknowns
-    are exactly decoupled; the kernel is oblivious and the result is
-    gathered back to natural control order (cf. the reference's
-    shape-agnostic sparse LU, ``src/core/newton_core.jl:40-89``).
-    """
-    T, n, m, p = spec.T, spec.n, spec.m, spec.p
-    pn, W = p * n, spec.W
-    B = b_knots.shape[0]
-    BL = min(block_lanes, B)
-    assert B % BL == 0, "batch must be divisible by the lane block"
+    sb = schur_blocks(spec, jb, b_knots)
+    ms = sb.ms
+    d = n + ms
+    dims = tile_dims(n, ms, p)
     dtype = jb.A.dtype
-    if spec.homogeneous:
-        mk = m                               # kernel-visible control width
-        Bm_in, Ub_in, b_in = jb.B, jb.Ublk, b_knots
-        owner = np.zeros((m,), np.int32)
-        for i in range(p):
-            owner[np.asarray(spec.pu[i])] = i
-    else:
-        mmax = max(spec.mi)
-        mk = p * mmax
-        idx = np.full((mk,), m, np.int64)    # m = virtual zero column
-        pad_mask = np.zeros((mk,), np.float64)
-        for i in range(p):
-            idx[i * mmax:i * mmax + spec.mi[i]] = np.asarray(spec.pu[i])
-            pad_mask[i * mmax + spec.mi[i]:(i + 1) * mmax] = 1.0
-        owner = (np.arange(mk) // mmax).astype(np.int32)
-        Bm_in = jnp.concatenate(
-            [jb.B, jnp.zeros((B, T, n, 1), dtype)], axis=3)[:, :, :, idx]
-        Ub_in = (jnp.pad(jb.Ublk, ((0, 0), (0, 0), (0, 1), (0, 1)))
-                 [:, :, idx][:, :, :, idx]
-                 + jnp.asarray(np.diag(pad_mask), dtype))
-        c_pad = jnp.pad(b_knots[:, :, pn:pn + m],
-                        ((0, 0), (0, 0), (0, 1)))[:, :, idx]
-        b_in = jnp.concatenate(
-            [b_knots[:, :, :pn], c_pad, b_knots[:, :, pn + m:]], axis=2)
-    d = n + mk
-    R = pn + 1
-
-    # ---- lane-last relayout of the RAW leaves (the only XLA-side work) ---
-    # All per-knot KKT precompute (Kb/Rt/BtQ/cG/cy of the round-2 design)
-    # happens inside the kernel; XLA's job is reduced to one layout
-    # transpose per leaf, ~40% fewer bytes than transposing the precomputed
-    # tensors and with no fusion intermediates to re-lay-out.
-    A, Qb = jb.A, jb.Qblk                          # [B, T, ...]
-    Wk = n + mk + pn                               # kernel-row width
-    ins = [
-        jnp.transpose(Qb, (1, 2, 3, 4, 0)),        # [T, p, n, n, B]
-        jnp.transpose(Ub_in, (1, 2, 3, 0)),        # [T, mk, mk, B]
-        jnp.transpose(Bm_in, (1, 2, 3, 0)),        # [T, n, mk, B]
-        jnp.transpose(A, (1, 2, 3, 0)),            # [T, n, n, B]   A_t
-        jnp.transpose(A, (1, 3, 2, 0)),            # [T, n, n, B]   A_t^T
-        jnp.transpose(b_in, (1, 2, 0)),            # [T, Wk, B]
-    ]
-
-    fwd_kernel = _make_fwd_kernel(T, n, mk, p, R, BL, owner, pivot=pivot)
-    grid = (B // BL, T)
-
-    def in_spec(x, shift_clamp=False):
-        # block: [1 knot, ..., BL lanes]
-        shape = (1,) + x.shape[1:-1] + (BL,)
-        nd = x.ndim
-
-        def imap(bt, t):
-            tt = jnp.minimum(t + 1, T - 1) if shift_clamp else t
-            return (tt,) + (0,) * (nd - 2) + (bt,)
-        return pl.BlockSpec(shape, imap, memory_space=pltpu.VMEM)
-
-    in_specs = [in_spec(ins[0]), in_spec(ins[1]), in_spec(ins[2]),
-                in_spec(ins[3]),
-                in_spec(ins[4], shift_clamp=True),   # A_{t+1}^T
-                in_spec(ins[5])]
-
-    G, yhat = pl.pallas_call(
-        fwd_kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=(
-            pl.BlockSpec((1, d, pn, BL), lambda bt, t: (t, 0, 0, bt),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, d, BL), lambda bt, t: (t, 0, bt),
-                         memory_space=pltpu.VMEM),
-        ),
+    aug0 = jnp.concatenate([
+        jnp.concatenate([sb.Kbase[:, :ms], sb.RHS_top], axis=2),
+        jnp.concatenate([sb.Kbase[:, ms:], jnp.zeros((T, n, pn), dtype),
+                         sb.d0[:, :, None]], axis=2)], axis=1)      # [T, d, C]
+    params = plgpu.CompilerParams(num_warps=warps_for_batch(batch),
+                                  num_stages=1)
+    G, yhat, _, _ = pl.pallas_call(
+        functools.partial(_fwd_kernel, T, n, ms, p, interpret),
         out_shape=(
-            jax.ShapeDtypeStruct((T, d, pn, B), dtype),
-            jax.ShapeDtypeStruct((T, d, B), dtype),
+            jax.ShapeDtypeStruct((T, d, pn), dtype),
+            jax.ShapeDtypeStruct((T, d), dtype),
+            jax.ShapeDtypeStruct((dims["NP"], dims["PP"], dims["NP"]), dtype),
+            jax.ShapeDtypeStruct((dims["DP"], dims["CP"]), dtype),
         ),
-        scratch_shapes=[
-            pltpu.VMEM((n, pn, BL), dtype),
-            pltpu.VMEM((n, BL), dtype),
-        ],
-        interpret=interpret,
-    )(*ins)
-
-    bwd_kernel = _make_bwd_kernel(T, n, mk, p, BL)
-
-    def rev_spec(x, shift_clamp=False):
-        shape = (1,) + x.shape[1:-1] + (BL,)
-        nd = x.ndim
-
-        def imap(bt, t):
-            knot = T - 1 - t
-            tt = jnp.minimum(knot + 1, T - 1) if shift_clamp else knot
-            return (tt,) + (0,) * (nd - 2) + (bt,)
-        return pl.BlockSpec(shape, imap, memory_space=pltpu.VMEM)
-
+        compiler_params=params, interpret=interpret, name="kkt_sweep_fwd",
+    )(aug0, sb.Asub, sb.AsupT, sb.Q, sb.a)
     ys = pl.pallas_call(
-        bwd_kernel,
-        grid=grid,
-        in_specs=[
-            rev_spec(G), rev_spec(yhat),
-            rev_spec(ins[0]),                      # Q
-            rev_spec(ins[4], shift_clamp=True),    # A_{knot+1}^T
-            rev_spec(ins[5]),                      # b (a rows)
-        ],
-        out_specs=pl.BlockSpec((1, Wk, BL), lambda bt, t: (T - 1 - t, 0, bt),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((T, Wk, B), dtype),
-        scratch_shapes=[pltpu.VMEM((pn, BL), dtype)],
-        interpret=interpret,
-    )(G, yhat, ins[0], ins[4], ins[5])
-
-    if not spec.homogeneous:
-        # Un-pad: gather the real controls back into natural order.
-        mmax = mk // p
-        nat2pm = np.zeros((m,), np.int64)
-        for i in range(p):
-            nat2pm[np.asarray(spec.pu[i])] = i * mmax + np.arange(spec.mi[i])
-        cols = np.concatenate([np.arange(n), n + nat2pm,
-                               n + mk + np.arange(pn)])
-        ys = ys[:, cols]
-    # [T, W, B] -> [B, T*W]
-    return jnp.transpose(ys, (2, 0, 1)).reshape(B, T * W)
+        functools.partial(_bwd_kernel, T, n, ms, p),
+        out_shape=jax.ShapeDtypeStruct((T, d + pn), dtype),
+        compiler_params=params, interpret=interpret, name="kkt_sweep_bwd",
+    )(G, yhat, sb.Q, sb.AsupT, sb.a)
+    return schur_unpad(spec, ys).reshape(-1)
 
 
-def solve_thomas_pallas_structured(spec, sq, b_knots, w_owner,
-                                   block_lanes: int = 128,
-                                   interpret: bool = False,
-                                   pivot: bool = True):
-    """Structured-Q variant of :func:`solve_thomas_pallas` — consumes
-    ``residual.StructuredQ`` leaves with a leading batch axis; the dense Q
-    tensor is never formed.  Homogeneous specs only (the hetero pad path
-    uses the dense kernel)."""
-    assert spec.homogeneous
-    T, n, m, p = spec.T, spec.n, spec.m, spec.p
-    pn, W, d = p * n, spec.W, spec.n + spec.m
-    R = pn + 1
-    B = b_knots.shape[0]
-    BL = min(block_lanes, B)
-    assert B % BL == 0, "batch must be divisible by the lane block"
-    dtype = sq.A.dtype
-    owner = np.zeros((m,), np.int32)
-    for i in range(p):
-        owner[np.asarray(spec.pu[i])] = i
-    NW = sq.wv.shape[2]
-    assert NW == len(w_owner)
-    wv_in = (sq.wv if NW > 0
-             else jnp.zeros((B, T, 1, n), dtype))          # dummy ref
-
-    ins = [
-        jnp.transpose(sq.qdiag, (1, 2, 3, 0)),     # [T, p, n, B]
-        jnp.transpose(wv_in, (1, 2, 3, 0)),        # [T, NW|1, n, B]
-        jnp.transpose(sq.Ublk, (1, 2, 3, 0)),      # [T, m, m, B]
-        jnp.transpose(sq.B, (1, 2, 3, 0)),         # [T, n, m, B]
-        jnp.transpose(sq.A, (1, 2, 3, 0)),         # [T, n, n, B]   A_t
-        jnp.transpose(sq.A, (1, 3, 2, 0)),         # [T, n, n, B]   A_t^T
-        jnp.transpose(b_knots, (1, 2, 0)),         # [T, W, B]
-    ]
-
-    fwd_kernel = _make_fwd_kernel_sq(T, n, m, p, R, BL, owner,
-                                     tuple(w_owner), pivot=pivot)
-    grid = (B // BL, T)
-
-    def in_spec(x, shift_clamp=False):
-        shape = (1,) + x.shape[1:-1] + (BL,)
-        nd = x.ndim
-
-        def imap(bt, t):
-            tt = jnp.minimum(t + 1, T - 1) if shift_clamp else t
-            return (tt,) + (0,) * (nd - 2) + (bt,)
-        return pl.BlockSpec(shape, imap, memory_space=pltpu.VMEM)
-
-    in_specs = [in_spec(x) for x in ins[:5]] + [
-        in_spec(ins[5], shift_clamp=True), in_spec(ins[6])]
-
-    G, yhat = pl.pallas_call(
-        fwd_kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=(
-            pl.BlockSpec((1, d, pn, BL), lambda bt, t: (t, 0, 0, bt),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, d, BL), lambda bt, t: (t, 0, bt),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((T, d, pn, B), dtype),
-            jax.ShapeDtypeStruct((T, d, B), dtype),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((n, pn, BL), dtype),
-            pltpu.VMEM((n, BL), dtype),
-        ],
-        interpret=interpret,
-    )(*ins)
-
-    bwd_kernel = _make_bwd_kernel_sq(T, n, m, p, BL, tuple(w_owner))
-
-    def rev_spec(x, shift_clamp=False):
-        shape = (1,) + x.shape[1:-1] + (BL,)
-        nd = x.ndim
-
-        def imap(bt, t):
-            knot = T - 1 - t
-            tt = jnp.minimum(knot + 1, T - 1) if shift_clamp else knot
-            return (tt,) + (0,) * (nd - 2) + (bt,)
-        return pl.BlockSpec(shape, imap, memory_space=pltpu.VMEM)
-
-    ys = pl.pallas_call(
-        bwd_kernel,
-        grid=grid,
-        in_specs=[
-            rev_spec(G), rev_spec(yhat),
-            rev_spec(ins[0]),                      # qdiag
-            rev_spec(ins[1]),                      # wv
-            rev_spec(ins[5], shift_clamp=True),    # A_{knot+1}^T
-            rev_spec(ins[6]),                      # b (a rows)
-        ],
-        out_specs=pl.BlockSpec((1, W, BL), lambda bt, t: (T - 1 - t, 0, bt),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((T, W, B), dtype),
-        scratch_shapes=[pltpu.VMEM((pn, BL), dtype)],
-        interpret=interpret,
-    )(G, yhat, ins[0], ins[1], ins[5], ins[6])
-
-    return jnp.transpose(ys, (2, 0, 1)).reshape(B, T * W)
+def solve_thomas_pallas(spec, jb, b_knots, interpret: bool = False):
+    """Batched form of :func:`sweep`: ``jb`` leaves and ``b_knots`` carry a
+    leading batch axis [B, ...].  Returns [B, S]."""
+    batch = b_knots.shape[0]
+    return jax.vmap(lambda j, b: sweep(spec, j, b, interpret=interpret,
+                                       batch=batch))(jb, b_knots)
 
 
 @functools.lru_cache(maxsize=None)
-def thomas_pallas_structured_for_spec(spec, w_owner, interpret: bool = False,
-                                      pivot: bool = True):
-    """custom_vmap dispatcher for the structured-Q kernel (see
-    :func:`thomas_pallas_for_spec`)."""
-
-    @jax.custom_batching.custom_vmap
-    def solve(sq, b):
-        sq1 = jax.tree_util.tree_map(lambda x: x[None], sq)
-        return solve_thomas_pallas_structured(
-            spec, sq1, b[None], w_owner, block_lanes=1,
-            interpret=interpret, pivot=pivot)[0]
-
-    @solve.def_vmap
-    def _rule(axis_size, in_batched, sq, b):
-        sq_flags, b_flag = in_batched
-
-        def bcast(x, flag):
-            return x if flag else jnp.broadcast_to(
-                x[None], (axis_size,) + x.shape)
-
-        sq = jax.tree_util.tree_map(bcast, sq, sq_flags)
-        b = bcast(b, b_flag)
-        bl = _largest_block(axis_size)
-        out = solve_thomas_pallas_structured(
-            spec, sq, b, w_owner, block_lanes=bl, interpret=interpret,
-            pivot=pivot)
-        return out, True
-
-    return solve
-
-
-def _largest_block(B: int, cap: int = 128) -> int:
-    """Lane-block size: Mosaic requires the lane dim of a block to be a
-    multiple of 128 or the full array dim, so pick the largest divisor of B
-    that is a multiple of 128, else the whole batch."""
-    for bl in range(cap * (B // cap), 0, -cap):
-        if B % bl == 0:
-            return bl
-    return B
-
-
-@functools.lru_cache(maxsize=None)
-def thomas_pallas_for_spec(spec, interpret: bool = False, pivot: bool = True):
-    """Per-sample Thomas solve that dispatches to the lane-batched Pallas
-    kernel under ``vmap`` (``jax.custom_batching.custom_vmap``): the solver
-    stays written per-scenario, while batched solves hit the fused kernel
-    with the batch as the TPU lane dimension."""
+def thomas_pallas_for_spec(spec, interpret: bool = False):
+    """Per-scenario KKT solve ``(JacBlocks, b) -> [S]`` for ``spec`` whose
+    batching rule sees the batch size and picks the warps per program from
+    it (:func:`warps_for_batch`)."""
 
     @jax.custom_batching.custom_vmap
     def solve(jb, b):
-        jb1 = jax.tree_util.tree_map(lambda x: x[None], jb)
-        return solve_thomas_pallas(spec, jb1, b[None], block_lanes=1,
-                                   interpret=interpret, pivot=pivot)[0]
+        return sweep(spec, jb, b, interpret=interpret)
 
     @solve.def_vmap
     def _rule(axis_size, in_batched, jb, b):
-        # Broadcast any unbatched leaves to the batch axis.
         jb_flags, b_flag = in_batched
 
         def bcast(x, flag):
@@ -731,10 +347,7 @@ def thomas_pallas_for_spec(spec, interpret: bool = False, pivot: bool = True):
                 x[None], (axis_size,) + x.shape)
 
         jb = jax.tree_util.tree_map(bcast, jb, jb_flags)
-        b = bcast(b, b_flag)
-        bl = _largest_block(axis_size)
-        out = solve_thomas_pallas(spec, jb, b, block_lanes=bl,
-                                  interpret=interpret, pivot=pivot)
-        return out, True
+        return solve_thomas_pallas(spec, jb, bcast(b, b_flag),
+                                   interpret=interpret), True
 
     return solve

@@ -12,7 +12,7 @@ slabs:
   1. local:   express the slab solution as  y = y0 + V·y_left + Z·y_right
               (one block-Thomas sweep with 1+2W right-hand sides)
   2. gather:  all_gather the slab boundary rows (2 blocks per device) — the
-              ONLY inter-device traffic, O(D · W²) over ICI
+              ONLY inter-device traffic, O(D · W²) between devices
   3. reduced: every device redundantly solves the 2D·W coupled boundary
               system (tiny: D devices × W block size)
   4. local:   back-substitute the interior with the now-known neighbors

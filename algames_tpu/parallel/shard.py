@@ -1,18 +1,19 @@
-"""Multi-chip scaling: shard the scenario batch over a device mesh.
+"""Multi-device scaling: shard the scenario batch over a device mesh.
 
 The distributed layer the reference does not have (SURVEY.md §2.3 / §5): the
 Monte-Carlo scenario axis is sharded over a ``jax.sharding.Mesh`` with
 ``shard_map``; each device runs its shard of full game solves locally (zero
-inter-chip traffic in the hot loop — game solves are embarrassingly parallel)
-and only the reduction of summary statistics (convergence counts, violation
-maxima) crosses the ICI via ``psum``/``pmax``.  On a multi-host v5p slice the
-same code scales across hosts — XLA routes the collectives over ICI/DCN.
+inter-device traffic in the hot loop — game solves are embarrassingly
+parallel) and only the reduction of summary statistics (convergence counts,
+violation maxima) crosses devices via ``psum``/``pmax``, which XLA hands to
+NCCL over NVLink.
 
-Mesh axes:
+Mesh axes (a logical ``dp x mc`` factorisation; the GPUs of a host are
+joined all to all, so the mesh follows the algorithm alone):
   dp — scenario data parallelism (the throughput axis)
-  mc — a second scenario axis kept separate so schedulers can map it to a
-       different ICI dimension (e.g. penalty-schedule sweeps vs initial
-       conditions); logically both are batch.
+  mc — a second scenario axis kept separate for schedulers that sweep two
+       things at once (e.g. penalty schedules x initial conditions);
+       logically both are batch.
 """
 from __future__ import annotations
 
@@ -54,8 +55,7 @@ def sharded_monte_carlo(prob: GameProblem, mesh: Mesh, x0s: jnp.ndarray,
     ``chunk``: each device's shard is solved in sequential vmapped chunks of
     this many lanes (``lax.map``) instead of one giant vmap — a vmapped
     while_loop runs max-over-lanes iterations, so smaller chunks pay only
-    their own stragglers (measured ~2.3x throughput at 4096 lanes/chip vs
-    unchunked; 128 = one Pallas lane tile).  Shards not divisible by
+    their own stragglers.  Shards not divisible by
     ``chunk`` fall back to a single vmap.
     """
     opts = prob.opts
@@ -86,7 +86,7 @@ def sharded_monte_carlo(prob: GameProblem, mesh: Mesh, x0s: jnp.ndarray,
         bad = (~jnp.isfinite(take(res.stats.res, it))
                | ~jnp.all(jnp.isfinite(
                    res.traj.x.reshape(res.traj.x.shape[0], -1)), axis=1))
-        # Cross-device reductions ride the ICI.
+        # Cross-device reductions (NCCL collectives).
         n_ok = jax.lax.psum(jnp.sum(ok.astype(jnp.float32)), ("dp", "mc"))
         n_tot = jax.lax.psum(jnp.asarray(ok.shape[0], jnp.float32), ("dp", "mc"))
         n_bad = jax.lax.psum(jnp.sum(bad.astype(jnp.float32)), ("dp", "mc"))

@@ -67,7 +67,7 @@ def write_obj(path: str, vertices=None, faces=None) -> str:
     if vertices is None or faces is None:
         vertices, faces = quadrotor_mesh()
     with open(path, "w") as fh:
-        fh.write("# tpu-algames procedural quadrotor mesh\n")
+        fh.write("# algames procedural quadrotor mesh\n")
         for v in vertices:
             fh.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
         for f in faces:

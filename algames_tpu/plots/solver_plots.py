@@ -1,6 +1,6 @@
 """Trajectory and convergence plots.
 
-TPU-native counterpart of the reference Plots.jl recipes
+JAX counterpart of the reference Plots.jl recipes
 (``src/plots/solver_plots.jl:18-120``): XY trajectories per player and the
 log10 violation history shaded per AL outer epoch.  Uses matplotlib when
 available (host-side, display/export only — never on the solve path);

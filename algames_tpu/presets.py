@@ -6,6 +6,7 @@ One builder per BASELINE.md config row (driver targets, `BASELINE.json`):
 * :func:`flagship_unicycle` — 3-player unicycle merge, N=20 (headline bench)
 * :func:`intro_bicycle`     — 3-player bicycle with the full constraint stack
                               (reference ``examples/intro_example.jl:1-80``)
+* :func:`highway_mpc`       — 3-player highway for warm-started replanning
 
 Each returns ``(GameProblem, ProblemSpec)``.  These are the configurations
 frozen as golden-trajectory fixtures (``tests/golden/``) and exercised by the
@@ -199,6 +200,37 @@ def quadrotor3d(dtype=jnp.float64, outer: int = 6, inner: int = 12,
     x0 = x0.at[spec.pz[1][1]].set(0.3)
     opts = Options(outer_iter=outer, inner_iter=inner,
                    eps_opt=_default_eps_opt(dtype, eps_opt))
+    return game_problem(N, dt, x0, model, opts, obj, gc), spec
+
+
+def highway_mpc(dtype=jnp.float32, outer: int = 3, inner: int = 8):
+    """3-player highway for receding-horizon replanning: parallel lanes,
+    lane-keeping targets, overtaking pressure from different target speeds.
+
+    ``dual_reset=False`` warm-starts the AL multipliers across replans
+    (penalties restart at mu0 each replan via ``reset_penalties``) and
+    ``shift=1`` shifts the previous plan by one knot; the gates are the
+    reference defaults (all 1e-3)."""
+    p = 3
+    model = unicycle_game(p=p)
+    N, dt = 20, 0.1
+    spec = spec_from_model(model, N, dt)
+    obj = game_objective(
+        spec,
+        Q=[jnp.asarray([0.0, 5.0, 1.0, 2.0], dtype)] * p,  # lane y, heading, speed
+        R=[0.1 * jnp.ones(2, dtype)] * p,
+        xf=[jnp.asarray([10.0, 0.4 * i, 0.0, 0.8 + 0.3 * i], dtype)
+            for i in range(p)],
+        uf=[jnp.zeros(2, dtype)] * p, dtype=dtype)
+    gc = game_constraints(spec, dtype=dtype)
+    gc = add_collision_avoidance(spec, gc, 0.1)
+    gc = add_control_bound(spec, gc, 3.0 * jnp.ones(2 * p, dtype),
+                           -3.0 * jnp.ones(2 * p, dtype))
+    opts = Options(outer_iter=outer, inner_iter=inner, shift=1,
+                   dual_reset=False)
+    x0 = jnp.asarray(np.concatenate([
+        [0.0, -0.5, -1.0], 0.4 * np.arange(p), np.zeros(p),
+        0.8 + 0.3 * np.arange(p)]), dtype)
     return game_problem(N, dt, x0, model, opts, obj, gc), spec
 
 

@@ -1,6 +1,6 @@
 """Iterative best response (IBR) solver.
 
-TPU-native equivalent of the reference IBR path
+JAX equivalent of the reference IBR path
 (``src/problem/solver_methods.jl:133-289``, ``ibr_*`` assembly at
 ``global_quantities.jl:199-365``): Gauss-Seidel over players, each player
 solving his own optimal-control problem with the other players' strategies
@@ -10,8 +10,8 @@ is a p=1 instance of the SAME structure the main solver factors
 
   v_t = [x_{t+1} (n) | u_{i,t} (mi) | lam_{i,t} (n)],  W_i = 2n + mi
 
-so the per-player solve reuses the main solver's machinery wholesale
-(round-4): the Schur-condensed block-Thomas sweep (`-I` multiplier pivots,
+so the per-player solve reuses the main solver's machinery wholesale:
+the Schur-condensed block-Thomas sweep (`-I` multiplier pivots,
 an (n+mi)-size reduced solve per knot), the PointData carry (one constraint/
 dynamics-Jacobian evaluation per accepted point), and the K-parallel line
 search restricted to the player's residual rows — no dynamic-size masking,
@@ -99,9 +99,9 @@ def player_violations(spec, gc, pd: R.PointData, res, i):
 
 class _PlayerSpec:
     """Per-player sub-spec shim: the player sub-KKT is a p=1 game with
-    control width mi, so ``solve_tridiagonal_schur`` — or the lane-batched
-    Pallas kernel via ``thomas_pallas_for_spec`` (VERDICT r4 #2) — factors
-    it with the same -I multiplier pivots as the main path (r3 #7).
+    control width mi, so ``solve_tridiagonal_schur`` — or the fused sweep
+    kernel via ``thomas_pallas_for_spec`` — factors it with the same -I
+    multiplier pivots as the main path.
     Hashable by value so the per-spec kernel cache
     (``thomas_pallas_for_spec``'s lru_cache) is shared across traces."""
 
@@ -138,13 +138,11 @@ def _ibr_player_solve(prob: GameProblem, traj, gc, stats, i: int, active,
     """Per-player AL solve with others frozen — same skeleton AND machinery
     as ``newton_solve`` (reference ``ibr_newton_solve!(prob, i)``,
     ``solver_methods.jl:168-225``): PointData carried across iterations (one
-    constraint/dynamics-Jacobian evaluation per accepted point, VERDICT r3
-    #7), the K-parallel first trials of the main line search restricted to
+    constraint/dynamics-Jacobian evaluation per accepted point), the K-parallel first trials of the main line search restricted to
     player i's residual rows, and the player-Schur elimination on the p=1
-    sub-KKT.  ``method='pallas'`` routes the KKT step through the
-    lane-batched fused Pallas kernel (VERDICT r4 #2): under ``vmap`` over
-    scenarios the custom batching rule of ``thomas_pallas_for_spec`` feeds
-    the batch as TPU lanes, exactly like the main path.  Stats rows record
+    sub-KKT.  ``method='pallas'`` routes the KKT step through the fused
+    sweep kernel: under ``vmap`` over scenarios the batch becomes the
+    kernel's grid, exactly like the main path.  Stats rows record
     the player's true AL epoch in the ``outer`` column (reference
     ``solver_methods.jl:218``).
     Returns (traj, gc, stats, max_delta)."""
@@ -163,8 +161,7 @@ def _ibr_player_solve(prob: GameProblem, traj, gc, stats, i: int, active,
         gc = gcm.reset_constraints(gc)
         traj = PrimalDual(x=traj.x, u=traj.u, lam=jnp.zeros_like(traj.lam))
     # One fresh full evaluation per player solve; every inner iteration and
-    # line-search trial reuses/extends it (the round-3 path re-evaluated the
-    # full residual every iteration AND trial).
+    # line-search trial reuses/extends it.
     pd = R.point_data(model, spec, obj, gc, traj)
 
     def norm_i(spec_, res_):
@@ -273,7 +270,7 @@ def ibr_newton_solve(prob: GameProblem, ibr_opts: IBROptions = IBROptions(),
     ``solver_methods.jl:133-166``): cycle players in ``ordering`` until no
     player's latest solve moved more than ``Δ_min``.  ``method`` selects the
     per-player KKT engine (``'schur'`` XLA scan, or ``'pallas'`` — the
-    lane-batched fused kernel, the throughput path for vmapped batches)."""
+    fused sweep kernel, the GPU path for vmapped batches)."""
     spec, model, opts = prob.spec, prob.model, prob.opts
     dtype = prob.x0.dtype
     p = spec.p

@@ -9,7 +9,7 @@ factorization (block Thomas algorithm) over the horizon:
 Forward elimination and back substitution run as ``lax.scan`` over the T
 knots; each step is a W×W pivoted solve (``jnp.linalg.solve``) that is
 batched over scenarios by ``vmap`` — the batch dimension is what feeds the
-MXU.  FLOPs: O(T · W³) versus O((T·W)³) for the dense LU, a ~T² reduction.
+tensor cores.  FLOPs: O(T · W³) versus O((T·W)³) for the dense LU, a ~T² reduction.
 
 A dense fallback (``solve_dense``) materializes the block-tridiagonal system
 into an S×S matrix and calls one pivoted solve — the correctness oracle and
@@ -21,8 +21,11 @@ order unpacked by ``core.traj.unpack_step``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 
 def solve_dense(spec, D, U, L, b_knots):
@@ -86,10 +89,10 @@ def newton_step(spec, D, U, L, b_knots, method: str = "tridiag"):
 
 
 def solve_cyclic_reduction(spec, D, U, L, b_knots):
-    """Block cyclic reduction — the horizon-parallel TPU fast path.
+    """Block cyclic reduction — the horizon-parallel KKT solve.
 
-    Where block-Thomas is a T-step sequential scan of small ops (dominated on
-    TPU by per-step dispatch overhead, not FLOPs), cyclic reduction runs
+    Where block-Thomas is a T-step sequential scan of small ops (bound by
+    per-step launch overhead, not FLOPs), cyclic reduction runs
     ceil(log2 T) *levels*, each eliminating every odd-indexed block
     simultaneously with a handful of LARGE batched ops:
 
@@ -98,8 +101,8 @@ def solve_cyclic_reduction(spec, D, U, L, b_knots):
       Lh'_e = -Lh_e D_{e-1}^{-1} Lh_{e-1};  Uh'_e = -Uh_e D_{e+1}^{-1} Uh_{e+1}
       b'_e  = b_e - Lh_e D_{e-1}^{-1} b_{e-1} - Uh_e D_{e+1}^{-1} b_{e+1}
 
-    Each level's solves are pivoted LU batched over [B x T/2] matrices — the
-    regime where the TPU LU kernel is fast.  Stability rests on the diagonal
+    Each level's solves are pivoted LU batched over [B x T/2] matrices —
+    few large batched calls instead of many small ones.  Stability rests on the diagonal
     blocks staying invertible at every level (the reference's pivoting-free
     concern, SURVEY.md §7 hard part 1); the Tikhonov-regularized KKT blocks
     satisfy this in practice and the result is validated against block-Thomas
@@ -177,11 +180,40 @@ def solve_cyclic_reduction(spec, D, U, L, b_knots):
     return ys[:T].reshape(-1)
 
 
-def solve_tridiagonal_schur(spec, jb, b_knots):
-    """Structure-exploiting block-Thomas solve — the TPU fast path.
+class SchurBlocks(NamedTuple):
+    """Per-knot ingredients of the condensed (Schur) block-Thomas sweep,
+    shared by :func:`solve_tridiagonal_schur` and the fused sweep kernel
+    (``ops/thomas_pallas.py``).  ``ms`` is the (padded) control width."""
+    Kbase: jnp.ndarray    # [T, d, d]   rows (statu | dyn), cols (x | u)
+    RHS_top: jnp.ndarray  # [T, ms, pn+1]  statu rows of the RHS
+    Q: jnp.ndarray        # [T, p, n, n]
+    a: jnp.ndarray        # [T, p, n]   statx RHS blocks
+    d0: jnp.ndarray       # [T, n]      dyn RHS
+    Asub: jnp.ndarray     # [T, n, n]   A_t (0 at t=0)
+    AsupT: jnp.ndarray    # [T, n, n]   A_{t+1}^T (0 at t=T-1)
+    ms: int
 
-    Exploits the *interior* structure of each W×W KKT block instead of
-    treating it as dense:
+
+def _hetero_padding(spec):
+    """Player-major padded control layout for heterogeneous per-player mi:
+    ``idx[r]`` is the natural control index of padded row r (``m`` = a
+    virtual zero column for padding rows), ``pad_mask[r]`` marks padding."""
+    p, m = spec.p, spec.m
+    mmax = max(spec.mi)
+    ms = p * mmax
+    idx = np.full((ms,), m, np.int64)
+    pad_mask = np.zeros((ms,), np.float64)
+    for i in range(p):
+        mi = spec.mi[i]
+        idx[i * mmax:i * mmax + mi] = np.asarray(spec.pu[i])
+        pad_mask[i * mmax + mi:(i + 1) * mmax] = 1.0
+    return idx, pad_mask
+
+
+def schur_blocks(spec, jb, b_knots) -> SchurBlocks:
+    """Carry-independent part of the condensed sweep.
+
+    Exploits the *interior* structure of each W×W KKT block:
 
     * statx rows are ``[Q_i | 0 | -I(own lam)]`` — the -I pivots eliminate all
       p·n multiplier unknowns exactly (no conditioning loss):
@@ -190,19 +222,14 @@ def solve_tridiagonal_schur(spec, jb, b_knots):
       because Lhat lives in dyn-rows/x-cols and G's nonzero columns are the
       lam block of U.
 
-    Each scan step therefore reduces to a handful of n×n / n×m batched
-    matmuls (MXU) plus ONE pivoted solve of size (n+m) with (p·n + 1)
-    right-hand sides — versus a (W = n+m+p·n)-size pivoted solve in the
-    generic path.  For the 3-player unicycle flagship: 18×18 instead of
-    54×54 (27x fewer LU FLOPs, 3x shorter sequential pivot chain).
-
-    Args: ``jb``: JacBlocks; ``b_knots`` [T, W] (pass the NEGATED residual to
-    get the Newton step).  Returns flat [S] in per-knot column order.
+    Heterogeneous per-player mi is handled by padding every player's control
+    block to mmax = max(mi) with identity rows / zero couplings, in
+    PLAYER-MAJOR order: the padded unknowns satisfy ``1 * u_pad = 0`` and
+    are exactly decoupled (the reference's sparse LU is shape-agnostic,
+    ``src/core/newton_core.jl:40-89``).
     """
-    import numpy as np
-
     T, n, m, p = spec.T, spec.n, spec.m, spec.p
-    pn, W = p * n, spec.W
+    pn = p * n
     dtype = jb.A.dtype
     eye_n = jnp.eye(n, dtype=dtype)
 
@@ -218,8 +245,7 @@ def solve_tridiagonal_schur(spec, jb, b_knots):
 
     if spec.homogeneous:
         # Per-player control columns of B: [T, p, n, mi]; row embeddings by
-        # static permutation gather, not scatter (slow partial-tile VMEM
-        # writes on TPU; see ops/thomas_pallas.py).
+        # static permutation gather, not scatter.
         pu = np.stack([np.asarray(spec.pu[i]) for i in range(p)])  # [p, mi]
         perm = pu.reshape(-1)
         inv = np.argsort(perm)
@@ -228,40 +254,21 @@ def solve_tridiagonal_schur(spec, jb, b_knots):
         BtQ_p = jnp.sum(Bp_all[..., None] * Q_all[:, :, :, None, :],
                         axis=2)                          # [T, p, mi, n]
         BtQ = BtQ_p.reshape(T, m, n)[:, inv, :]
-        Ub_s, B_s, c_s = jb.Ublk, jb.B, c_all
+        Ub_s, B_s = jb.Ublk, jb.B
         ms = m
     else:
-        # Heterogeneous per-player mi (VERDICT r3 #4): pad every player's
-        # control block to mmax = max(mi) with identity rows / zero
-        # couplings, in PLAYER-MAJOR order.  The padded unknowns satisfy
-        # ``1 * u_pad = 0`` — fully decoupled, the elimination is exact —
-        # closing the capability gap vs the reference's shape-agnostic
-        # sparse LU (``src/core/newton_core.jl:40-89``).
         mmax = max(spec.mi)
-        ms = p * mmax
-        # idx[r] = natural control index of padded player-major row r, or m
-        # (a virtual zero column) for padding rows.
-        idx = np.full((ms,), m, np.int64)
-        pad_mask = np.zeros((ms,), np.float64)
-        for i in range(p):
-            mi = spec.mi[i]
-            idx[i * mmax:i * mmax + mi] = np.asarray(spec.pu[i])
-            pad_mask[i * mmax + mi:(i + 1) * mmax] = 1.0
-        real = jnp.asarray(1.0 - pad_mask, dtype)
+        idx, pad_mask = _hetero_padding(spec)
+        ms = len(idx)
         pad_eye = jnp.asarray(np.diag(pad_mask), dtype)
         zcol = jnp.zeros((T, n, 1), dtype)
-        B_ext = jnp.concatenate([jb.B, zcol], axis=2)    # virtual zero col
-        B_s = B_ext[:, :, idx]                           # [T, n, ms]
+        B_s = jnp.concatenate([jb.B, zcol], axis=2)[:, :, idx]   # [T, n, ms]
         Bp_all = B_s.reshape(T, n, p, mmax).transpose(0, 2, 1, 3)
         BtQ_p = jnp.sum(Bp_all[..., None] * Q_all[:, :, :, None, :],
                         axis=2)                          # [T, p, mmax, n]
         BtQ = BtQ_p.reshape(T, ms, n)
         Ub_ext = jnp.pad(jb.Ublk, ((0, 0), (0, 1), (0, 1)))
         Ub_s = Ub_ext[:, idx][:, :, idx] + pad_eye[None]
-        c_ext = jnp.pad(c_all, ((0, 0), (0, 1)))
-        c_s = c_ext[:, idx]
-        perm = idx  # for the final un-permutation below
-        inv = None
 
     Kbase = jnp.concatenate([
         jnp.concatenate([BtQ, Ub_s], axis=2),
@@ -275,11 +282,52 @@ def solve_tridiagonal_schur(spec, jb, b_knots):
              * eye_p[None, :, None, :, None])            # [T, p, ., p, n]
     cG = cG_bd.reshape(T, ms, pn)
     cy_add = jnp.sum(Bp_all * a_all[..., None], axis=2)  # [T, p, mi|mmax]
-    cy = c_s + cy_add.reshape(T, ms)
     if spec.homogeneous:
         cG = cG[:, inv, :]
         cy = c_all + cy_add.reshape(T, m)[:, inv]
+    else:
+        cy = (jnp.pad(c_all, ((0, 0), (0, 1)))[:, idx]
+              + cy_add.reshape(T, ms))
     RHS_top = jnp.concatenate([cG, cy[:, :, None]], axis=2)  # [T, ms, pn+1]
+    return SchurBlocks(Kbase=Kbase, RHS_top=RHS_top, Q=Q_all, a=a_all,
+                       d0=d_all, Asub=Asub, AsupT=AsupT, ms=ms)
+
+
+def schur_unpad(spec, ys):
+    """[T, n+ms+pn] sweep output (padded player-major controls) -> [T, W]
+    in the natural per-knot column order."""
+    if spec.homogeneous:
+        return ys
+    n, m, p = spec.n, spec.m, spec.p
+    mmax = max(spec.mi)
+    ms = p * mmax
+    nat2pm = np.zeros((m,), np.int64)
+    for i in range(p):
+        nat2pm[np.asarray(spec.pu[i])] = i * mmax + np.arange(spec.mi[i])
+    cols = np.concatenate([np.arange(n), n + nat2pm,
+                           n + ms + np.arange(p * n)])
+    return ys[:, cols]
+
+
+def solve_tridiagonal_schur(spec, jb, b_knots):
+    """Structure-exploiting block-Thomas solve (see :func:`schur_blocks`).
+
+    Each scan step reduces to a handful of n×n / n×m matmuls plus ONE
+    pivoted solve of size (n+m) with (p·n + 1) right-hand sides — versus a
+    (W = n+m+p·n)-size pivoted solve in the generic path.  For the 3-player
+    unicycle flagship: 18×18 instead of 54×54 (27x fewer LU FLOPs, 3x
+    shorter sequential pivot chain).  Every contraction is pinned to
+    ``HIGHEST`` precision: the float32 path must not drop to TF32.
+
+    Args: ``jb``: JacBlocks; ``b_knots`` [T, W] (pass the NEGATED residual to
+    get the Newton step).  Returns flat [S] in per-knot column order.
+    """
+    n, p = spec.n, spec.p
+    pn = p * n
+    sb = schur_blocks(spec, jb, b_knots)
+    ms = sb.ms
+    dtype = jb.A.dtype
+    hi = jax.lax.Precision.HIGHEST
 
     def fwd(carry, inp):
         # Carry holds only the (x, u) rows [d = n+ms]: the recursion reads
@@ -288,14 +336,15 @@ def solve_tridiagonal_schur(spec, jb, b_knots):
         G_prev, y_prev = carry                       # [d, pn], [d]
         Q, Kb, Rt, a, d0, At, At1T = inp
         # Thomas fill-in: only dyn rows x lam cols.
-        F = -At @ G_prev[:n]                         # [n, pn]
+        F = -jnp.matmul(At, G_prev[:n], precision=hi)          # [n, pn]
         F3 = F.reshape(n, p, n)
-        FQ = jnp.einsum('aib,ibq->aq', F3, Q)        # [n, n]
+        FQ = jnp.einsum('aib,ibq->aq', F3, Q, precision=hi)    # [n, n]
         K = Kb.at[ms:, :n].add(FQ)
 
-        dG = jnp.einsum('aib,bq->aiq', F3, At1T).reshape(n, pn)
-        dy = (d0 - At @ y_prev[:n]
-              + jnp.einsum('aib,ib->a', F3, a))
+        dG = jnp.einsum('aib,bq->aiq', F3, At1T,
+                        precision=hi).reshape(n, pn)
+        dy = (d0 - jnp.matmul(At, y_prev[:n], precision=hi)
+              + jnp.einsum('aib,ib->a', F3, a, precision=hi))
         RHS = jnp.concatenate(
             [Rt, jnp.concatenate([dG, dy[:, None]], axis=1)], axis=0)
         sol = jnp.linalg.solve(K, RHS)               # [(n+ms), pn+1]
@@ -307,30 +356,21 @@ def solve_tridiagonal_schur(spec, jb, b_knots):
     init = (jnp.zeros((d_rows, pn), dtype), jnp.zeros((d_rows,), dtype))
     _, (G, yhat) = jax.lax.scan(
         fwd, init,
-        (Q_all, Kbase, RHS_top, a_all, d_all, Asub, AsupT))
+        (sb.Q, sb.Kbase, sb.RHS_top, sb.a, sb.d0, sb.Asub, sb.AsupT))
 
     def bwd(lam_next, inp):
         # lam_{i,t} = Q_i x_t + A_{t+1}^T lam_{i,t+1} - a_{i,t}  (statx row
         # solved for the eliminated multiplier; A_T^T = 0 at the last knot).
         G_t, yhat_t, Q, At1T, a = inp
-        xu = yhat_t - G_t @ lam_next                 # [d]
+        xu = yhat_t - jnp.matmul(G_t, lam_next, precision=hi)  # [d]
         x = xu[:n]
-        lam = (jnp.einsum('pab,b->pa', Q, x)
-               + jnp.einsum('ab,pb->pa', At1T, lam_next.reshape(p, n))
+        lam = (jnp.einsum('pab,b->pa', Q, x, precision=hi)
+               + jnp.einsum('ab,pb->pa', At1T, lam_next.reshape(p, n),
+                            precision=hi)
                - a)                                  # [p, n]
         lam = lam.reshape(pn)
         return lam, jnp.concatenate([xu, lam])
 
     _, ys = jax.lax.scan(bwd, jnp.zeros((pn,), dtype),
-                         (G, yhat, Q_all, AsupT, a_all), reverse=True)
-    if not spec.homogeneous:
-        # Un-pad: gather the real controls back into natural order.
-        nat2pm = np.zeros((m,), np.int64)
-        off = 0
-        mmax = ms // p
-        for i in range(p):
-            nat2pm[np.asarray(spec.pu[i])] = i * mmax + np.arange(spec.mi[i])
-        cols = np.concatenate([np.arange(n), n + nat2pm,
-                               n + ms + np.arange(pn)])
-        ys = ys[:, cols]
-    return ys.reshape(-1)
+                         (G, yhat, sb.Q, sb.AsupT, sb.a), reverse=True)
+    return schur_unpad(spec, ys).reshape(-1)

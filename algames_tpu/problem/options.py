@@ -1,6 +1,6 @@
 """Solver options.
 
-TPU-native equivalent of the reference ``Options`` / ``IBROptions`` /
+JAX equivalent of the reference ``Options`` / ``IBROptions`` /
 ``Regularizer`` (``src/struct/options.jl:5-136``,
 ``src/struct/regularizer.jl:5-15``).  A single frozen (hashable) dataclass:
 it is *static* under jit — iteration caps and flags shape the compiled
@@ -42,19 +42,11 @@ class Options:
     # to the sequential loop.  Rationale: under vmap every lane pays the MAX
     # line-search depth across the batch per Newton iteration — sequential
     # trials serialize, parallel trials amortize.  0 = pure sequential.
-    # Default 1 (round 4): on the flagship the batch p50 accept depth is 1,
-    # so K=2 pays a full second trial evaluation every iteration to save a
-    # rare whole-batch sequential pass — measured ~10% throughput loss
-    # (45.5k -> 41.1k solves/s at the bench config).  Raise for problems
-    # whose accept-depth histogram has real mass past 1.
+    # Default 1: on the flagship the batch p50 accept depth is 1, so K=2
+    # pays a full second trial evaluation every iteration to save a rare
+    # whole-batch sequential pass.  Raise for problems whose accept-depth
+    # histogram has real mass past 1.
     ls_parallel: int = 1
-
-    # Fuse the line-search trial evaluation (trial point + residual +
-    # constraint values + norm) into one lane-last Pallas kernel on the
-    # ``pallas`` method path (``ops/trial_pallas.py``).  Changes trial-value
-    # op order (accept decisions may differ at ULP margins vs the XLA
-    # pass); off by default.
-    ls_fused: bool = False
 
     # Augmented Lagrangian penalty schedule.
     rho_0: float = 1.0
@@ -89,11 +81,8 @@ class Options:
     # trip — so the per-lane iteration sequence is bitwise identical at any
     # unroll.  >1 trades while-trip overhead (cond evaluations, batching-
     # rule carry selects) against the guard selects over the carried
-    # PointData + up to unroll-1 masked tail iterations per lane.  On the
-    # flagship bench this measured NEGATIVE (53.3k -> 51.0k solves/s at
-    # unroll=2, monotonically worse to 44.9k at 4): trip overhead there is
-    # already small and the guard selects dominate.  Kept for problems with
-    # much deeper iteration counts relative to body cost; default 1.
+    # PointData + up to unroll-1 masked tail iterations per lane.  Default
+    # 1; not yet measured on the GPU.
     loop_unroll: int = 1
 
     # Adaptive penalty safeguard (NOT in the reference, opt-in): ramp the

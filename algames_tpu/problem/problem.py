@@ -1,6 +1,6 @@
 """GameProblem: the top-level problem record.
 
-TPU-native equivalent of the reference ``GameProblem`` + ``Penalty``
+JAX equivalent of the reference ``GameProblem`` + ``Penalty``
 (``src/problem/problem.jl:5-53``).  Instead of preallocated trajectories,
 views, and a mutable Newton core, the problem is a slim pytree: static shape
 information (spec, model, options) as aux data, and the traced scenario data

@@ -1,6 +1,6 @@
 """KKT residual and Jacobian-block assembly.
 
-TPU-native equivalent of the reference's global residual/Jacobian assembly
+JAX equivalent of the reference's global residual/Jacobian assembly
 (``src/problem/global_quantities.jl:4-193``) and the per-knot dynamics
 quantities (``src/problem/local_quantities.jl:5-27``).
 
@@ -33,9 +33,11 @@ from ..constraints import sets as gcm
 from ..core.spec import ProblemSpec
 from ..core.traj import PrimalDual
 from ..models.integration import rk2_step, step_jacobians_traj
-from ..objective.objective import (cost_gradient, cost_hessian,
-                                   cost_hessian_diag)
+from ..objective.objective import cost_gradient, cost_hessian
 from ..utils import pytree_dataclass
+
+# float32 contractions are exact float32 on every backend (no TF32).
+_HI = jax.lax.Precision.HIGHEST
 
 
 @pytree_dataclass
@@ -62,8 +64,7 @@ def owner_map_u(spec: ProblemSpec) -> np.ndarray:
 def _same_owner_mask(spec: ProblemSpec) -> np.ndarray:
     """Static [m, m] 0/1 mask: 1 iff both control indices belong to the same
     player.  Embedding per-player control Hessian sub-blocks is a multiply by
-    this mask — strided ``.at[pu, pu].add`` scatters are pathologically slow
-    on TPU (partial-tile VMEM writes dominated the round-1 profile)."""
+    this mask, not a strided ``.at[pu, pu].add`` scatter."""
     owner = owner_map_u(spec)
     return (owner[:, None] == owner[None, :]).astype(np.float64)
 
@@ -284,9 +285,8 @@ class PointLite:
     contracting.  Constraint Jacobians are evaluated inside the trial for its
     own residual but NOT carried: both the dense and the constraint Jacobians
     are only needed for the KKT assembly of the ACCEPTED point, so they are
-    re-evaluated there (:func:`point_from_lite`) — carrying them per trial
-    cost a [B, trials, T, C, n] layout-copy + gather tail in the round-3
-    hlo_stats profile.
+    re-evaluated there (:func:`point_from_lite`) instead of being carried
+    as [B, trials, T, C, n] tensors per trial.
     """
     rx0: jnp.ndarray                 # [T, p, n]
     ru0: jnp.ndarray                 # [T, m]
@@ -357,8 +357,7 @@ def point_lite_res(model, spec: ProblemSpec, obj, gc: gcm.GameConstraints,
         return jax.vmap(pull)(lams_k)            # ([p, n], [p, m])
     gx, gu = jax.vmap(_pull, in_axes=(0, 0, 1))(
         traj.x[:-1], traj.u, traj.lam)           # [T, p, n], [T, p, m]
-    # Shifted add as concat-pad, not .at[:-1].add — the dynamic-update-slice
-    # write cost ~4% of device time in the round-3 profile.
+    # Shifted add as concat-pad, not .at[:-1].add (a dynamic-update-slice).
     rx = rx + jnp.concatenate([gx[1:], jnp.zeros_like(gx[:1])], axis=0)
     rx = rx - jnp.transpose(traj.lam, (1, 0, 2))
     ru = ru + gu[:, owner, np.arange(m)]
@@ -413,8 +412,8 @@ def _al_grad(blk, J, w):
     * bounds: J is the constant ``[+I; -I] * mask`` — closed form, no J
       needed (``w_up * m - w_lo * m``);
     * single-row constraints (collision/circle): elementwise product;
-    * general: einsum (a C=1/structured dot otherwise costs MXU layout
-      copies — they dominated the round-2 device profile).
+    * general: einsum at ``HIGHEST`` precision (float32 must not drop to
+      TF32 on a GPU).
     """
     from ..constraints import kernels as _k
     if isinstance(blk.params, _k.BoundParams):
@@ -423,11 +422,9 @@ def _al_grad(blk, J, w):
         mu_, ml_ = jnp.asarray(m[:dim], w.dtype), jnp.asarray(m[dim:], w.dtype)
         return w[:, :dim] * mu_ - w[:, dim:] * ml_
     if J.shape[1] == 1:
-        # w is [K, 1]: broadcast directly (w[:, 0, None] lowers to a
-        # dynamic-index gather, which Mosaic cannot batch >2D inside the
-        # fused trial kernel).
+        # w is [K, 1]: broadcast directly.
         return J[:, 0, :] * w
-    return jnp.einsum('kcd,kc->kd', J, w)
+    return jnp.einsum('kcd,kc->kd', J, w, precision=_HI)
 
 
 def _al_hess(blk, J, irho):
@@ -442,7 +439,7 @@ def _al_hess(blk, J, irho):
         return d[:, :, None] * jnp.eye(dim, dtype=irho.dtype)
     if J.shape[1] == 1:
         return (J[:, 0, :, None] * J[:, 0, None, :]) * irho[:, 0, None, None]
-    return jnp.einsum('kcd,kc,kce->kde', J, irho, J)
+    return jnp.einsum('kcd,kc,kce->kde', J, irho, J, precision=_HI)
 
 
 def _blk_jacobian_for_carry(blk, traj):
@@ -534,117 +531,6 @@ def assemble_from_point(spec: ProblemSpec, obj, gc: gcm.GameConstraints,
     Ublk = Ublk + reg * eye_m
     return (Residual(rx=rx, ru=ru, rd=pd.rd),
             JacBlocks(Qblk=Qblk, Ublk=Ublk, A=pd.A, B=pd.B), sta_v, con_v)
-
-
-@pytree_dataclass
-class StructuredQ:
-    """Diagonal + rank-1 decomposition of the statx Hessian blocks:
-
-      Qblk[t, i] = diag(qdiag[t, i]) + sum_{k: w_owner[k] == i} wv[t, k] wv[t, k]^T
-
-    Exact for every diagonal (LQR) objective: the cost Hessian and the
-    bound-constraint AL Hessians are diagonal, and every other state
-    constraint family (collision / spherical / circle / walls / cylinder /
-    velocity) has one row per knot, so its AL Hessian J^T irho J is rank-1
-    with w = sqrt(irho) J.  The Pallas fast path consumes this instead of
-    the dense [T, p, n, n] tensor: ~4x fewer bytes re-laid-out lane-last per
-    iteration and the kernel's B^T Q / F Q / Q x contractions become
-    diag-multiplies plus one dot+axpy per w vector (round-4 glue burn-down,
-    VERDICT r3 #2).
-    """
-    qdiag: jnp.ndarray    # [T, p, n]
-    wv: jnp.ndarray       # [T, NW, n]  (NW = total single-row constraint rows)
-    Ublk: jnp.ndarray     # [T, m, m]
-    A: jnp.ndarray        # [T, n, n]
-    B: jnp.ndarray        # [T, n, m]
-
-
-def structured_w_owner(gc: gcm.GameConstraints):
-    """Static owner map of the rank-1 w vectors: one per constraint ROW of
-    every non-bound state block (a C-row block contributes C vectors), in
-    ``gc.state_blocks`` order; bound blocks contribute diagonals instead."""
-    from ..constraints import kernels as _k
-    owners = []
-    for blk in gc.state_blocks:
-        if isinstance(blk.params, _k.BoundParams):
-            continue
-        owners.extend([blk.owner] * blk.lam.shape[1])
-    return tuple(owners)
-
-
-def structured_q_supported(spec: ProblemSpec, obj, gc) -> bool:
-    """True iff the statx Hessians decompose as :class:`StructuredQ`: a
-    diagonal objective (no CollisionCost terms — their Hessians are dense
-    cross-player blocks).  Every constraint family qualifies: bound blocks
-    are diagonal, every other block's AL Hessian is sum_c irho_c J_c J_c^T
-    = one w vector per row."""
-    return not obj.pair_i
-
-
-def assemble_structured_from_point(spec: ProblemSpec, obj, gc, traj,
-                                   pd: PointData, reg=0.0):
-    """:func:`assemble_from_point` with the statx Hessians in
-    :class:`StructuredQ` form (never materializing Qblk).  Same residual,
-    violations, Ublk, and regularization semantics."""
-    from ..constraints import kernels as _k
-    T, p, n, m = spec.T, spec.p, spec.n, spec.m
-    dtype = traj.x.dtype
-    Qx, Ru = cost_hessian_diag(spec, obj, traj)
-
-    rx, ru = pd.rx0, pd.ru0
-    qdiag = jnp.transpose(Qx[:, 1:], (1, 0, 2))              # [T, p, n]
-    same = jnp.asarray(_same_owner_mask(spec), dtype)
-    owner = owner_map_u(spec)
-    Ublk = jnp.zeros((T, m, m), dtype)
-    for i in range(p):
-        mask_i = jnp.asarray(np.outer(owner == i, owner == i)
-                             .astype(np.float64), dtype)
-        Ublk = Ublk + Ru[i] * mask_i
-
-    sta_v = jnp.zeros((), dtype)
-    con_v = jnp.zeros((), dtype)
-    grad_per = [None] * p
-    qadd_per = [None] * p
-    wvs = []
-    for blk, c, J in zip(gc.state_blocks, pd.state_c, pd.state_J):
-        irho = _irho(blk, c)
-        grad = _al_grad(blk, J, blk.lam + irho * c)
-        i = blk.owner
-        grad_per[i] = grad if grad_per[i] is None else grad_per[i] + grad
-        if isinstance(blk.params, _k.BoundParams):
-            dim = blk.params.z_max.shape[0]
-            mk = np.asarray(blk.params.mask, np.float64)
-            mu_ = jnp.asarray(mk[:dim], dtype)
-            ml_ = jnp.asarray(mk[dim:], dtype)
-            dvec = irho[:, :dim] * mu_ + irho[:, dim:] * ml_  # [T, dim]
-            qadd_per[i] = (dvec if qadd_per[i] is None
-                           else qadd_per[i] + dvec)
-        else:
-            for cc in range(blk.lam.shape[1]):
-                wvs.append(jnp.sqrt(irho[:, cc])[:, None]
-                           * J[:, cc, :])                 # [T, n]
-        sta_v = jnp.maximum(sta_v, gcm.block_violation_max(blk, c))
-    gsum = _owner_select(spec, grad_per, T, (n,), dtype)
-    if gsum is not None:
-        rx = rx + gsum
-    qsum = _owner_select(spec, qadd_per, T, (n,), dtype)
-    if qsum is not None:
-        qdiag = qdiag + qsum
-    for blk, c, J in zip(gc.control_blocks, pd.control_c, pd.control_J):
-        irho = _irho(blk, c)
-        grad = _al_grad(blk, J, blk.lam + irho * c)
-        hess = _al_hess(blk, J, irho)
-        ru = ru + grad
-        Ublk = Ublk + hess * same
-        con_v = jnp.maximum(con_v, gcm.block_violation_max(blk, c))
-
-    qdiag = qdiag + reg
-    Ublk = Ublk + reg * jnp.eye(m, dtype=dtype)
-    wv = (jnp.stack(wvs, axis=1) if wvs
-          else jnp.zeros((T, 0, n), dtype))
-    return (Residual(rx=rx, ru=ru, rd=pd.rd),
-            StructuredQ(qdiag=qdiag, wv=wv, Ublk=Ublk, A=pd.A, B=pd.B),
-            sta_v, con_v)
 
 
 def point_violations(gc: gcm.GameConstraints, pd: PointData):

@@ -1,13 +1,14 @@
 """ALGAMES Newton / augmented-Lagrangian solver — fully on-device.
 
-TPU-native equivalent of the reference solver driver
+JAX equivalent of the reference solver driver
 (``src/problem/solver_methods.jl:5-125``): the AL outer loop, the inner
 quasi-Newton iteration, and the backtracking line search.  The host-side
 ``for``/``break`` control flow of the reference becomes ``lax.while_loop``
 with predicated (masked) updates, so that
 
 * the entire solve is one jitted computation (zero host round-trips in the
-  hot loop — the TPU analogue of the reference's zero-allocation kernels),
+  hot loop — the device analogue of the reference's zero-allocation
+  kernels),
 * ``vmap`` over scenario batches is exact: each lane carries its own
   ``active`` mask and converged lanes become no-ops, reproducing the
   sequential early-``break`` semantics per scenario.
@@ -55,7 +56,7 @@ class SolveResult:
 
 
 def line_search(model, spec, obj, gc, opts, traj, dtraj, res_norm, reg,
-                norm_fn=None, trial_fn=None):
+                norm_fn=None):
     """Backtracking line search (reference ``line_search``,
     ``solver_methods.jl:105-125``).  Accept alpha iff the trial mean residual
     (with Tikhonov pull toward the current iterate) improves by (1-alpha*beta).
@@ -89,41 +90,22 @@ def line_search(model, spec, obj, gc, opts, traj, dtraj, res_norm, reg,
     if norm_fn is None:
         norm_fn = R.residual_norm     # IBR passes the player-rows norm
 
-    if trial_fn is not None:
-        # Fused Pallas trial evaluation (Options.ls_fused): the whole
-        # trial — point formation, residual, constraint values, Tikhonov
-        # pull, L1 norm — is one lane-last kernel (ops/trial_pallas.py).
-        reg_arr = (reg if opts.regularize
-                   else jnp.zeros((), dtype))
-        def trial_point(alpha):
-            return trial_fn(traj, dtraj, alpha, jnp.asarray(reg_arr, dtype),
-                            gc, obj)
-    else:
-        def trial_point(alpha):
-            trial = update_traj(traj, alpha, dtraj)
-            pd, res_t = R.point_lite_res(model, spec, obj, gc, trial)
-            # Tikhonov pull toward the current iterate (residual's reg
-            # term), applied in the same op order as R.residual(reg,
-            # traj_ref).
-            rx = res_t.rx + reg_eff * (trial.x[1:] - traj.x[1:])[:, None, :]
-            ru = res_t.ru + reg_eff * (trial.u - traj.u)
-            tn = norm_fn(spec, R.Residual(rx=rx, ru=ru, rd=res_t.rd))
-            return tn, pd
+    @jax.named_scope("ls_trial")
+    def trial_point(alpha):
+        trial = update_traj(traj, alpha, dtraj)
+        pd, res_t = R.point_lite_res(model, spec, obj, gc, trial)
+        # Tikhonov pull toward the current iterate (residual's reg term),
+        # applied in the same op order as R.residual(reg, traj_ref).
+        rx = res_t.rx + reg_eff * (trial.x[1:] - traj.x[1:])[:, None, :]
+        ru = res_t.ru + reg_eff * (trial.u - traj.u)
+        tn = norm_fn(spec, R.Residual(rx=rx, ru=ru, rd=res_t.rd))
+        return tn, pd
 
     # At least one vectorized trial so the carried pd always starts defined.
     K = max(1, min(int(opts.ls_parallel), opts.ls_iter - 1))
     alphas = (opts.alpha_0
               * opts.alpha_decrease ** jnp.arange(K, dtype=dtype))
-    if trial_fn is not None:
-        # No vmap over the alpha window: a nested vmap cannot re-batch the
-        # kernel's custom_vmap.  K separate kernel calls (K=1 by default;
-        # the outer scenario vmap still batches each call's lanes).
-        outs = [trial_point(alphas[j]) for j in range(K)]
-        tns = jnp.stack([o[0] for o in outs])
-        pds = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs),
-                                     *[o[1] for o in outs])
-    else:
-        tns, pds = jax.vmap(trial_point)(alphas)
+    tns, pds = jax.vmap(trial_point)(alphas)
     ok = tns <= (1.0 - alphas * opts.beta) * res_norm
     any_ok = jnp.any(ok)
     first = jnp.argmax(ok)                    # index of first passing trial
@@ -157,6 +139,33 @@ def line_search(model, spec, obj, gc, opts, traj, dtraj, res_norm, reg,
     return alpha, j, found, pd
 
 
+def _kkt_step(spec, jb, b, method):
+    """Structured Newton step ``J d = -b`` (``solver_methods.jl:84-88``) by
+    the named KKT method (or a callable ``(spec, JacBlocks, -b) -> [S]``)."""
+    if callable(method):
+        # Custom KKT solver, e.g. parallel.horizon.spike_kkt_method(mesh):
+        # (spec, JacBlocks, -b [T, W]) -> flat step [S].
+        dflat = method(spec, jb, -b)
+    elif method == "schur":
+        dflat = solve_tridiagonal_schur(spec, jb, -b)
+    elif method in ("pallas", "pallas_interpret"):
+        from ..ops.thomas_pallas import thomas_pallas_for_spec
+        dflat = thomas_pallas_for_spec(
+            spec, interpret=(method == "pallas_interpret"))(jb, -b)
+    elif method == "cr":
+        D, U, L = R.build_tridiagonal(spec, jb)
+        dflat = solve_cyclic_reduction(spec, D, U, L, -b)
+    elif method in ("tridiag", "dense"):
+        D, U, L = R.build_tridiagonal(spec, jb)
+        dflat = newton_step(spec, D, U, L, b, method=method)
+    else:
+        raise ValueError(
+            f"unknown linear-solver method {method!r}; expected one of "
+            "'schur', 'pallas', 'pallas_interpret', 'cr', 'tridiag', "
+            "'dense'")
+    return dflat
+
+
 def _iteration(model, spec, obj, opts, method, gc, traj, pd, stats, outer_k,
                l, delta_prev, alpha_prev):
     """One inner quasi-Newton iteration (``solver_methods.jl:67-103``):
@@ -175,17 +184,9 @@ def _iteration(model, spec, obj, opts, method, gc, traj, pd, stats, outer_k,
 
     # Rebuild residual + Jacobian + violations from the carried point data
     # (one constraint expansion and one dynamics-Jacobian pass TOTAL per
-    # accepted point, shared with the line search that produced it).  The
-    # Pallas path assembles the statx Hessians in diag+rank-1 StructuredQ
-    # form when the problem permits — the dense [T, p, n, n] tensor never
-    # exists (VERDICT r3 #2 glue burn-down).
+    # accepted point, shared with the line search that produced it).
     reg_eff = reg if opts.regularize else 0.0
-    use_sq = (method in ("pallas", "pallas_interpret") and spec.homogeneous
-              and R.structured_q_supported(spec, obj, gc))
-    if use_sq:
-        res, sq, sta_v, con_v = R.assemble_structured_from_point(
-            spec, obj, gc, traj, pd, reg=reg_eff)
-    else:
+    with jax.named_scope("assemble"):
         res, jb, sta_v, con_v = R.assemble_from_point(spec, obj, gc, traj,
                                                       pd, reg=reg_eff)
     res_norm = R.residual_norm(spec, res)
@@ -199,50 +200,12 @@ def _iteration(model, spec, obj, opts, method, gc, traj, pd, stats, outer_k,
 
     # Structured Newton step (solver_methods.jl:84-88).
     b = R.residual_knot_blocks(spec, res)
-    if callable(method):
-        # Custom KKT solver, e.g. parallel.horizon.spike_kkt_method(mesh):
-        # (spec, JacBlocks, -b [T, W]) -> flat step [S].
-        dflat = method(spec, jb, -b)
-    elif method == "schur":
-        dflat = solve_tridiagonal_schur(spec, jb, -b)
-    elif method in ("pallas", "pallas_interpret"):
-        interp = method == "pallas_interpret"
-        if use_sq:
-            from ..ops.thomas_pallas import thomas_pallas_structured_for_spec
-            dflat = thomas_pallas_structured_for_spec(
-                spec, R.structured_w_owner(gc), interpret=interp)(sq, -b)
-        else:
-            from ..ops.thomas_pallas import thomas_pallas_for_spec
-            dflat = thomas_pallas_for_spec(spec, interpret=interp)(jb, -b)
-    elif method == "cr":
-        D, U, L = R.build_tridiagonal(spec, jb)
-        dflat = solve_cyclic_reduction(spec, D, U, L, -b)
-    elif method in ("tridiag", "dense"):
-        D, U, L = R.build_tridiagonal(spec, jb)
-        dflat = newton_step(spec, D, U, L, b, method=method)
-    else:
-        raise ValueError(
-            f"unknown linear-solver method {method!r}; expected one of "
-            "'schur', 'pallas', 'pallas_interpret', 'cr', 'tridiag', "
-            "'dense'")
+    with jax.named_scope("kkt"):
+        dflat = _kkt_step(spec, jb, b, method)
     dtraj = unpack_step(spec, dflat)
 
-    trial_fn = None
-    if opts.ls_fused and method in ("pallas", "pallas_interpret"):
-        interp = method == "pallas_interpret"
-        # Prefer the hand-written lane-last kernel (Mosaic-lowerable);
-        # outside its specialization fall back to the generic
-        # vmap-in-kernel fusion (interpret-mode only in practice —
-        # blocked by Mosaic on chip, docs/PERF.md round-5 section).
-        from ..ops.trial_kernel import handwritten_trial_for_problem
-        trial_fn = handwritten_trial_for_problem(model, spec, obj, gc,
-                                                 interpret=interp)
-        if trial_fn is None:
-            from ..ops.trial_pallas import fused_trial_for_spec
-            trial_fn = fused_trial_for_spec(model, spec, interpret=interp)
     alpha, j, found, lite = line_search(model, spec, obj, gc, opts, traj,
-                                        dtraj, res_norm, reg,
-                                        trial_fn=trial_fn)
+                                        dtraj, res_norm, reg)
     failed_ls = j >= opts.ls_iter
     traj_new = update_traj(traj, alpha, dtraj)
     delta = delta_step(dtraj, alpha)
@@ -254,8 +217,7 @@ def _iteration(model, spec, obj, opts, method, gc, traj, pd, stats, outer_k,
     # select between per-branch evaluations would produce (the old pd's
     # Jacobians were themselves computed at the old traj by this same
     # function), without lane-masked selects over the [B, T, n, n]-scale
-    # A/B/state_J tensors — those where-fusions were ~0.2 ms/chunk of HBM
-    # glue in the round-4 profile.
+    # A/B/state_J tensors.
     lite_old = R.PointLite(rx0=pd.rx0, ru0=pd.ru0, rd=pd.rd,
                            state_c=pd.state_c, control_c=pd.control_c)
     lite_sel = _where_tree(take_step, lite, lite_old)
@@ -334,9 +296,8 @@ def flat_machine(prob: GameProblem, method):
     ``cond``/``body`` operate on ONE lane's carry (a flat tuple) and vmap
     cleanly; :func:`_solve_flat` drives them with a ``lax.while_loop``.
     ``init(traj0, pd0, gc0, stats0, rho0)`` builds the initial carry.
-    Exposed as a seam for alternative batch schedulers (a lane-compacted
-    FIFO-pool driver was built and measured on this seam in round 4 — see
-    docs/PERF.md "attempts that did NOT pay" for why it lost).
+    Exposed as a seam for alternative batch schedulers (e.g. a
+    lane-compacted FIFO pool that refills converged lanes).
     """
     spec, model, opts = prob.spec, prob.model, prob.opts
     dtype = prob.x0.dtype

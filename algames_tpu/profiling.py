@@ -1,6 +1,6 @@
 """Device profiling helpers.
 
-TPU-native upgrade of the reference's per-iteration ``@elapsed`` timing
+JAX upgrade of the reference's per-iteration ``@elapsed`` timing
 (``src/problem/solver_methods.jl:40-41``): host-side wall timers around
 blocked device computations, plus a ``jax.profiler`` trace context for
 kernel-level inspection in TensorBoard/XProf.

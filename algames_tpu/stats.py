@@ -1,6 +1,6 @@
 """On-device solver statistics.
 
-TPU-native equivalent of the reference ``Statistics`` and the violation
+JAX equivalent of the reference ``Statistics`` and the violation
 records (``src/struct/statistics.jl:5-72``, ``src/struct/violations.jl``).
 The reference pushes per-iteration records onto host vectors; here the
 record is a fixed-capacity stack of device arrays (capacity = the static
@@ -104,10 +104,8 @@ def record(stats: Statistics, active, outer, res, delta, alpha,
     i = jnp.minimum(stats.iter, cap - 1)
     row = jnp.stack([jnp.asarray(v, stats.data.dtype) for v in
                      (res, delta, alpha, dyn_vio, con_vio, sta_vio, opt_vio)])
-    # One-hot row blend instead of .at[i].set: a dynamic-update-slice is a
-    # partial-tile VMEM write on TPU and showed up at ~6% of device time in
-    # the round-3 hlo_stats profile; the [cap, 7] dense select fuses into
-    # the surrounding elementwise ops.
+    # One-hot row blend instead of .at[i].set: the [cap, 7] dense select
+    # fuses into the surrounding elementwise ops.
     hit = (jnp.arange(cap) == i) & active
     return Statistics(
         iter=jnp.where(active, jnp.minimum(stats.iter + 1, cap), stats.iter),

@@ -1,6 +1,6 @@
 """Small utilities: pytree dataclasses, scientific-notation printer, solver table.
 
-TPU-native counterpart of the reference ``src/utils.jl``.  The in-place
+JAX counterpart of the reference ``src/utils.jl``.  The in-place
 view-add helpers (``add2sub``/``addI2sub``/``sparse_zero!``,
 ``src/utils.jl:5-31``) have no equivalent here — assembly is functional — so
 this module keeps only the user-facing formatting helpers plus the pytree

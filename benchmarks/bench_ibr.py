@@ -1,11 +1,10 @@
-"""IBR throughput benchmark (VERDICT r3 #7 artifact).
+"""IBR throughput benchmark.
 
-Batched Gauss-Seidel IBR solves of the flagship 3-player unicycle config on
-the real chip, with the round-4 machinery (PointData carry, player-Schur
-sub-solves, K-parallel line search).  Writes
+Batched Gauss-Seidel IBR solves of the flagship 3-player unicycle config
+(PointData carry, player-Schur sub-solves, K-parallel line search).  Writes
 ``benchmarks/results/ibr_bench.json``.
 
-Run on the chip:  python benchmarks/bench_ibr.py
+Run on the GPU:  python benchmarks/bench_ibr.py
 """
 import json
 import os
@@ -17,10 +16,6 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                 "/root/repo/.jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -31,13 +26,13 @@ def main():
     from algames_tpu.problem.ibr import ibr_newton_solve
     from algames_tpu.problem.options import IBROptions
 
+    ag.enable_compile_cache()
     dtype = jnp.float32
     prob, spec = flagship_unicycle(dtype=dtype, outer=3, inner=8)
     ibr_opts = IBROptions(ibr_iter=10)
-    method = os.environ.get("IBR_METHOD", "pallas")
+    method = os.environ.get("IBR_METHOD", ag.kkt_method())
     # Chunked sweep like parallel.solve_many: chunks of IBR_BATCH lanes
-    # back-to-back ON DEVICE (lax.scan) — one dispatch for the whole sweep,
-    # 128 lanes = one Pallas lane tile per kernel call (VERDICT r4 #2).
+    # back-to-back ON DEVICE (lax.scan) — one dispatch for the whole sweep.
     B = int(os.environ.get("IBR_BATCH", "128"))
     C = int(os.environ.get("IBR_CHUNKS", "4"))
     key = jax.random.PRNGKey(0)
@@ -75,7 +70,7 @@ def main():
     it = out.stats.iter.reshape(-1)
     res_norm = out.stats.res.reshape(C * B, -1)[jnp.arange(C * B), it - 1]
     result = {
-        "platform": jax.devices()[0].platform,
+        **ag.device_info(),
         "batch": B,
         "chunks": C,
         "method": method,

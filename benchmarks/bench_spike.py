@@ -1,11 +1,11 @@
-"""Long-horizon SPIKE performance artifact (VERDICT r4 #7).
+"""Long-horizon SPIKE performance artifact.
 
 Sweeps horizon N in {65, 257, 1025} (T = 64 / 256 / 1024 intervals) on a
 2-player unicycle overtaking game and times the Newton-step KKT solve
 end-to-end through a FULL solve:
 
-* single-device sequential sweeps (``schur``; plus ``pallas`` on TPU) —
-  real chip numbers when run with the default platform;
+* single-device sequential sweeps (``schur``; plus ``pallas`` on a GPU) —
+  device numbers when run with the default platform;
 * 8-virtual-device SPIKE (``parallel.spike_kkt_method``) on the CPU mesh —
   SHAPE-ONLY rows (virtual devices share the same cores, so efficiency is
   ~1/D by construction; the row validates the sharded program at scale and
@@ -14,7 +14,7 @@ end-to-end through a FULL solve:
 
 Appends rows to ``benchmarks/results/spike_bench.json``.  Run:
 
-  python benchmarks/bench_spike.py                 # TPU single-chip rows
+  python benchmarks/bench_spike.py                 # single-GPU rows
   PLATFORM=cpu python benchmarks/bench_spike.py    # CPU + SPIKE rows
 """
 import json
@@ -37,10 +37,8 @@ if os.environ.get("PLATFORM") == "cpu":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 else:
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                     "/root/repo/.jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    import algames_tpu
+    algames_tpu.enable_compile_cache()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "results", "spike_bench.json")

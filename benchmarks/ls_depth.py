@@ -25,7 +25,9 @@ def main():
     x0s = jnp.tile(prob.x0[None], (batch, 1))
     x0s = x0s + 0.05 * jax.random.normal(key, x0s.shape, dtype)
 
-    fn = jax.jit(lambda x: ag.parallel.solve_batch(prob, x, method="pallas"))
+    ag.enable_compile_cache()
+    fn = jax.jit(lambda x: ag.parallel.solve_batch(prob, x,
+                                                   method=ag.kkt_method()))
     out = fn(x0s)
     jax.block_until_ready(out.traj.x)
 

@@ -15,7 +15,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

@@ -1,12 +1,12 @@
 """Intro example — 3-player bicycle game with the full constraint stack.
 
-TPU-native mirror of the reference ``examples/intro_example.jl:1-80``:
+JAX mirror of the reference ``examples/intro_example.jl:1-80``:
 build model -> objective (+collision cost) -> constraints (collision
 avoidance, control/state bounds, wall, circles) -> GameProblem ->
 newton_solve -> plots.
 
-Run on CPU (f64):   python examples/intro_example.py
-Run on TPU (f32):   DTYPE=f32 PLATFORM=tpu python examples/intro_example.py
+Run (f64, default device):   python examples/intro_example.py
+Run in float32:              DTYPE=f32 python examples/intro_example.py
 """
 import os
 import sys
@@ -16,9 +16,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-if os.environ.get("PLATFORM", "cpu") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 import numpy as np

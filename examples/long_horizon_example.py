@@ -8,8 +8,9 @@ Newton step's block-tridiagonal factorization DISTRIBUTED over the horizon
 devices exchange only slab-boundary blocks, and wall-clock for the dominant
 sweep scales ~1/devices.
 
-Run on CPU with 8 virtual devices (default) or any real multi-chip mesh
-(PLATFORM=tpu).
+Runs over every device JAX finds: on the CPU, 8 virtual devices (the
+``--xla_force_host_platform_device_count`` flag set below), on a host with
+several GPUs, those GPUs.
 """
 import os
 import sys
@@ -18,11 +19,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-if os.environ.get("PLATFORM", "cpu") == "cpu":
-    os.environ.setdefault("XLA_FLAGS",
-                          "--xla_force_host_platform_device_count=8")
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_enable_x64", True)
+os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
+jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 import numpy as np

@@ -6,7 +6,7 @@ default budget (outer=7 x inner=20, eps all 1e-3 —
 primal-dual trajectory plus its final violations as an ``.npz`` fixture.
 
 ``tests/test_golden.py`` regression-gates every structured linear-solver
-method against these fixtures, and the f32 TPU-path trajectory against the
+method against these fixtures, and the f32 trajectory against the
 f64 oracle at equal budget (the BASELINE "match reference open-loop
 equilibrium trajectories within tolerance at equal iteration budget" anchor,
 reference trajectories themselves being defined by the same algorithm at the

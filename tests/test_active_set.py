@@ -187,7 +187,7 @@ def test_nullspace_dimension_3d_spherical():
 
 
 def test_extended_jacobian_knotrows_is_row_permutation():
-    """The block-native builder (VERDICT r3 #6) equals the reference-ordered
+    """The block-native builder equals the reference-ordered
     oracle up to the static base-row permutation (knot-major equation order
     vs player-major vertical order); appended rows/columns are identical."""
     prob, spec = _prob(p=3, N=7, radius=1.0)

@@ -1,4 +1,4 @@
-"""Examples gated in the suite (VERDICT r4 #8): each ``examples/*.py`` runs
+"""Examples gated in the suite: each ``examples/*.py`` runs
 end-to-end as a subprocess at a reduced budget (``SMOKE=1``), so a break in
 any example API it exercises fails CI instead of going unnoticed.
 

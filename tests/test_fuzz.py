@@ -1,4 +1,4 @@
-"""Adversarial solver fuzzing (VERDICT r3 #9).
+"""Adversarial solver fuzzing.
 
 The golden fixtures (``tests/golden/``) pin five BASELINE configurations;
 this suite pins the space between them: seeded random small problems —
@@ -12,7 +12,7 @@ drift at equal iteration budget on a subset.
 f32 accuracy gating: random per-entry penalties up to 1e7 produce KKT
 systems whose conditioning exceeds what ANY f32 factorization can track
 (kappa * eps_f32 >~ 1), so the f32 gates are RELATIVE — the Pallas kernel
-must track the pivoted XLA ``schur`` path (the criterion of VERDICT r3 #1)
+must track the pivoted XLA ``schur`` path
 — with an absolute bound whenever the pivoted path itself is accurate.
 """
 import dataclasses
@@ -172,12 +172,12 @@ def test_fuzz_kkt_methods_vs_dense_oracle(case):
     if deep:
         jb321 = jax.tree_util.tree_map(lambda x: x[None], jb32)
         y_p32 = np.asarray(solve_thomas_pallas(
-            spec, jb321, -b32[None], block_lanes=1, interpret=True))[0]
+            spec, jb321, -b32[None], interpret=True))[0]
         err_p = np.abs(y_p32 - y_or).max() / scale
         assert err_p < max(3e-2, 2.0 * err_s), (err_p, err_s)
         jb1 = jax.tree_util.tree_map(lambda x: x[None], jb)
         y_pal = np.asarray(solve_thomas_pallas(
-            spec, jb1, -b[None], block_lanes=1, interpret=True))[0]
+            spec, jb1, -b[None], interpret=True))[0]
         np.testing.assert_allclose(y_pal, y_or, atol=2e-6 * scale, rtol=0)
 
 
@@ -203,7 +203,7 @@ def test_fuzz_f32_vs_f64_equal_budget(case):
 @pytest.mark.parametrize("case", range(8))
 def test_fuzz_hetero_fast_paths(case):
     """Random ragged-mi games: the pad-and-mask schur/pallas fast paths
-    reproduce the f64 dense-oracle step (VERDICT r3 #4, fuzz-pinned)."""
+    reproduce the f64 dense-oracle step (fuzz-pinned)."""
     from algames_tpu.models.hetero import hetero_double_integrator_game
 
     rng = np.random.default_rng(3000 + case)
@@ -244,5 +244,5 @@ def test_fuzz_hetero_fast_paths(case):
     np.testing.assert_allclose(y_s, y_or, atol=2e-6 * scale, rtol=0)
     jb1 = jax.tree_util.tree_map(lambda x: x[None], jb)
     y_p = np.asarray(solve_thomas_pallas(spec, jb1, -b[None],
-                                         block_lanes=1, interpret=True))[0]
+                                         interpret=True))[0]
     np.testing.assert_allclose(y_p, y_or, atol=2e-6 * scale, rtol=0)

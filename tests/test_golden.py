@@ -4,7 +4,7 @@
 of the BASELINE configs at the reference default budget (outer=7 x inner=20,
 eps 1e-3 — ``/root/reference/src/struct/options.jl:73-91``), produced by
 ``tests/golden/generate.py``.  Every structured linear-solver method must
-reproduce them, and the f32 TPU-path trajectory must match the f64 oracle at
+reproduce them, and the f32 trajectory must match the f64 oracle at
 equal iteration caps (reference anchor for the converged-trajectory test:
 ``/root/reference/test/problem/solver_methods.jl:164-182``).
 """
@@ -54,8 +54,8 @@ CASES = [
     ("di2_N10", "dense"), ("di2_N10", "schur"),
     ("di2_N10", "pallas_interpret"),
     ("bike3_N20", "dense"), ("bike3_N20", "schur"),
-    # big configs: tridiag generated the fixture; gate the TPU-shipping
-    # structured paths (schur + the Pallas sweep at W=88 / W=80 shapes)
+    # big configs: tridiag generated the fixture; gate the structured
+    # paths (schur + the fused sweep kernel at the W=88 / W=80 shapes)
     ("round4_N40", "schur"), ("round4_N40", "pallas_interpret"),
     ("quad2_N15", "schur"), ("quad2_N15", "pallas_interpret"),
 ]
@@ -91,7 +91,7 @@ def test_golden_spike_method():
 @pytest.mark.parametrize("name", ["di2_N10", "uni3_N20"])
 @pytest.mark.parametrize("method", ["schur", "pallas_interpret"])
 def test_f32_matches_f64_golden_equal_budget(name, method):
-    """The f32 TPU-path trajectory matches the f64 oracle at equal iteration
+    """The f32 trajectory matches the f64 oracle at equal iteration
     caps (BASELINE "match reference trajectories at equal iteration budget";
     quantifies the ~2e-3 claim in ``__graft_entry__``)."""
     gold = _gold(name)

@@ -107,7 +107,7 @@ def test_jacobian_equals_autodiff_mixed_mi():
 
 def test_hetero_solve_matches_dense_oracle():
     """Full Newton/AL solve at mixed mi: every structured method — including
-    the pad-and-mask schur/pallas fast paths (VERDICT r3 #4) — matches the
+    the pad-and-mask schur/pallas fast paths — matches the
     dense oracle and converges to the reference tolerances."""
     prob, spec = _prob()
     ref = ag.newton_solve_jit(prob, method="dense")
@@ -147,5 +147,5 @@ def test_hetero_schur_pallas_kkt_oracle():
     np.testing.assert_allclose(y_s, y_or, rtol=0, atol=1e-10 * scale)
     jb1 = jax.tree_util.tree_map(lambda x: x[None], jb)
     y_p = np.asarray(solve_thomas_pallas(spec, jb1, -b[None],
-                                         block_lanes=1, interpret=True))[0]
+                                         interpret=True))[0]
     np.testing.assert_allclose(y_p, y_or, rtol=0, atol=1e-10 * scale)

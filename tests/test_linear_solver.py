@@ -112,9 +112,9 @@ def test_solver_methods_agree_end_to_end():
 
 
 def test_pallas_thomas_interpret():
-    """Fused Pallas sweep (interpret mode) matches the pivoted Schur path,
-    including with large AL penalties on the Q blocks (the pivoting-free GE
-    stress case, SURVEY.md §7 hard part 1)."""
+    """Fused sweep kernel (interpret mode) matches the pivoted Schur path,
+    including with large AL penalties on the Q blocks (SURVEY.md §7 hard
+    part 1)."""
     from algames_tpu.ops.thomas_pallas import solve_thomas_pallas
 
     p = 3
@@ -142,7 +142,7 @@ def test_pallas_thomas_interpret():
                 Qblk=jbs.Qblk.at[:, :, :, diag, diag].add(penalty),
                 Ublk=jbs.Ublk, A=jbs.A, B=jbs.B)
         y_ref = jax.vmap(lambda jb, bb: solve_tridiagonal_schur(spec, jb, bb))(jbs_s, b)
-        y_pal = solve_thomas_pallas(spec, jbs_s, b, block_lanes=4, interpret=True)
+        y_pal = solve_thomas_pallas(spec, jbs_s, b, interpret=True)
         scale = float(jnp.max(jnp.abs(y_ref)))
         np.testing.assert_allclose(np.asarray(y_pal), np.asarray(y_ref),
                                    atol=1e-7 * max(scale, 1.0), rtol=1e-6)
@@ -184,7 +184,7 @@ def test_batched_vmap_solve():
 
 def test_pallas_thomas_interpret_quadrotor_shapes():
     """Kernel generality at the quadrotor block sizes (n=24, mi=4, W=80 for
-    p=2): the fused Pallas sweep must match the pivoted Schur path at shapes
+    p=2): the fused sweep kernel must match the pivoted Schur path at shapes
     far from the 3-player-unicycle flagship."""
     from algames_tpu.ops.thomas_pallas import solve_thomas_pallas
 
@@ -210,81 +210,29 @@ def test_pallas_thomas_interpret_quadrotor_shapes():
     b = jax.vmap(lambda r: R.residual_knot_blocks(spec, r))(res)
     y_ref = jax.vmap(lambda jb, bb: solve_tridiagonal_schur(spec, jb, bb))(
         jbs, b)
-    y_pal = solve_thomas_pallas(spec, jbs, b, block_lanes=2, interpret=True)
+    y_pal = solve_thomas_pallas(spec, jbs, b, interpret=True)
     scale = float(jnp.max(jnp.abs(y_ref)))
     np.testing.assert_allclose(np.asarray(y_pal), np.asarray(y_ref),
                                atol=1e-7 * max(scale, 1.0), rtol=1e-6)
 
 
 def test_structured_q_assembly_and_kernel():
-    """StructuredQ (diag + rank-1) reproduces the dense assembly exactly and
-    the structured Pallas kernel matches the dense oracle (round-4 fast
-    path, VERDICT r3 #2)."""
-    import dataclasses
-
-    from algames_tpu.ops.thomas_pallas import solve_thomas_pallas_structured
+    """At the flagship and quadrotor shapes, the fused sweep kernel solves
+    the assembled KKT system (diagonal cost plus rank-1 collision AL terms
+    in Q, formed densely) to the dense oracle's answer."""
+    from algames_tpu.ops.thomas_pallas import solve_thomas_pallas
     from algames_tpu.presets import flagship_unicycle, quadrotor3d
-    from algames_tpu.problem import residual as R
     from algames_tpu.problem.linear_solver import solve_dense
 
     for prob, spec in (flagship_unicycle(outer=2, inner=2),
                        quadrotor3d(outer=2, inner=2)):
-        assert R.structured_q_supported(spec, prob.obj, prob.gc)
-        ks = jax.random.split(jax.random.PRNGKey(3), 3)
-        traj = ag.PrimalDual(
-            x=0.2 * jax.random.normal(ks[0], (spec.N, spec.n), jnp.float64),
-            u=0.2 * jax.random.normal(ks[1], (spec.T, spec.m), jnp.float64),
-            lam=0.2 * jax.random.normal(ks[2], (spec.p, spec.T, spec.n),
-                                        jnp.float64))
-        pd = R.point_data(prob.model, spec, prob.obj, prob.gc, traj)
-        res_d, jb, sv_d, cv_d = R.assemble_from_point(
-            spec, prob.obj, prob.gc, traj, pd, reg=1e-3)
-        res_s, sq, sv_s, cv_s = R.assemble_structured_from_point(
-            spec, prob.obj, prob.gc, traj, pd, reg=1e-3)
-        # identical residual/violations; Q reconstructs exactly
-        np.testing.assert_array_equal(np.asarray(res_d.rx),
-                                      np.asarray(res_s.rx))
-        np.testing.assert_array_equal(np.asarray(res_d.ru),
-                                      np.asarray(res_s.ru))
-        np.testing.assert_array_equal(np.asarray(sv_d), np.asarray(sv_s))
-        w_owner = R.structured_w_owner(prob.gc)
-        Qrec = jax.vmap(jax.vmap(jnp.diag))(sq.qdiag)
-        for k, o in enumerate(w_owner):
-            Qrec = Qrec.at[:, o].add(sq.wv[:, k, :, None]
-                                     * sq.wv[:, k, None, :])
-        np.testing.assert_allclose(np.asarray(Qrec), np.asarray(jb.Qblk),
-                                   rtol=0, atol=1e-13)
-        np.testing.assert_array_equal(np.asarray(sq.Ublk),
-                                      np.asarray(jb.Ublk))
-
-        b = R.residual_knot_blocks(spec, res_d)
-        D, U, L = R.build_tridiagonal(spec, jb)
-        y_or = np.asarray(solve_dense(spec, D, U, L, -b))
-        sq1 = jax.tree_util.tree_map(lambda x: x[None], sq)
-        y_sq = np.asarray(solve_thomas_pallas_structured(
-            spec, sq1, -b[None], w_owner, block_lanes=1, interpret=True))[0]
+        y_sq, y_or = _kernel_vs_dense(prob, spec, solve_thomas_pallas,
+                                      solve_dense)
         scale = np.abs(y_or).max()
         np.testing.assert_allclose(y_sq, y_or, rtol=0, atol=1e-10 * scale)
 
 
-def test_structured_q_rank_k_circle_blocks():
-    """Multi-row (C > 1) constraint blocks decompose as C w-vectors: the
-    flagship plus 3-circle obstacle blocks still takes the structured path
-    and matches the dense oracle."""
-    import dataclasses
-
-    from algames_tpu.ops.thomas_pallas import solve_thomas_pallas_structured
-    from algames_tpu.presets import flagship_unicycle
-    from algames_tpu.problem.linear_solver import solve_dense
-
-    prob, spec = flagship_unicycle(outer=2, inner=2)
-    gc = ag.add_circle_constraint(spec, prob.gc, [0.3, 0.8, 1.2],
-                                  [0.1, -0.1, 0.2], [0.15, 0.2, 0.1])
-    prob = dataclasses.replace(prob, gc=gc)
-    assert R.structured_q_supported(spec, prob.obj, prob.gc)
-    w_owner = R.structured_w_owner(prob.gc)
-    assert len(w_owner) == 6 + 3 * spec.p      # collisions + 3 circles/player
-
+def _kernel_vs_dense(prob, spec, kernel, dense):
     ks = jax.random.split(jax.random.PRNGKey(3), 3)
     traj = ag.PrimalDual(
         x=0.2 * jax.random.normal(ks[0], (spec.N, spec.n), jnp.float64),
@@ -292,29 +240,38 @@ def test_structured_q_rank_k_circle_blocks():
         lam=0.2 * jax.random.normal(ks[2], (spec.p, spec.T, spec.n),
                                     jnp.float64))
     pd = R.point_data(prob.model, spec, prob.obj, prob.gc, traj)
-    res_d, jb, _, _ = R.assemble_from_point(spec, prob.obj, prob.gc, traj,
-                                            pd, reg=1e-3)
-    _, sq, _, _ = R.assemble_structured_from_point(spec, prob.obj, prob.gc,
-                                                   traj, pd, reg=1e-3)
-    Qrec = jax.vmap(jax.vmap(jnp.diag))(sq.qdiag)
-    for k, o in enumerate(w_owner):
-        Qrec = Qrec.at[:, o].add(sq.wv[:, k, :, None] * sq.wv[:, k, None, :])
-    np.testing.assert_allclose(np.asarray(Qrec), np.asarray(jb.Qblk),
-                               rtol=0, atol=1e-13)
-    b = R.residual_knot_blocks(spec, res_d)
+    res, jb, _, _ = R.assemble_from_point(spec, prob.obj, prob.gc, traj, pd,
+                                          reg=1e-3)
+    b = R.residual_knot_blocks(spec, res)
     D, U, L = R.build_tridiagonal(spec, jb)
-    y_or = np.asarray(solve_dense(spec, D, U, L, -b))
-    sq1 = jax.tree_util.tree_map(lambda x: x[None], sq)
-    y_sq = np.asarray(solve_thomas_pallas_structured(
-        spec, sq1, -b[None], w_owner, block_lanes=1, interpret=True))[0]
-    np.testing.assert_allclose(y_sq, y_or, rtol=0,
+    y_or = np.asarray(dense(spec, D, U, L, -b))
+    jb1 = jax.tree_util.tree_map(lambda x: x[None], jb)
+    y_k = np.asarray(kernel(spec, jb1, -b[None], interpret=True))[0]
+    return y_k, y_or
+
+
+def test_structured_q_rank_k_circle_blocks():
+    """Multi-row (C > 1) constraint blocks: the flagship plus three circle
+    obstacles per player; the kernel matches the dense oracle."""
+    import dataclasses
+
+    from algames_tpu.ops.thomas_pallas import solve_thomas_pallas
+    from algames_tpu.presets import flagship_unicycle
+    from algames_tpu.problem.linear_solver import solve_dense
+
+    prob, spec = flagship_unicycle(outer=2, inner=2)
+    gc = ag.add_circle_constraint(spec, prob.gc, [0.3, 0.8, 1.2],
+                                  [0.1, -0.1, 0.2], [0.15, 0.2, 0.1])
+    prob = dataclasses.replace(prob, gc=gc)
+    y_k, y_or = _kernel_vs_dense(prob, spec, solve_thomas_pallas,
+                                 solve_dense)
+    np.testing.assert_allclose(y_k, y_or, rtol=0,
                                atol=1e-10 * np.abs(y_or).max())
 
 
 def test_structured_q_fallback_collision_cost():
-    """A CollisionCost objective (dense cross-player Hessian blocks) must
-    NOT take the structured path; method='pallas_interpret' still solves it
-    through the dense-Q kernel and matches the dense method."""
+    """A CollisionCost objective (dense cross-player Hessian blocks):
+    method='pallas_interpret' solves it and matches the dense method."""
     from algames_tpu.objective.objective import add_collision_cost
     from algames_tpu.presets import intro_di
 
@@ -323,7 +280,6 @@ def test_structured_q_fallback_collision_cost():
                              2.0 * jnp.ones(spec.p))
     import dataclasses
     prob = dataclasses.replace(prob, obj=obj)
-    assert not R.structured_q_supported(spec, prob.obj, prob.gc)
     ref = ag.newton_solve(prob, method="dense")
     out = ag.newton_solve(prob, method="pallas_interpret")
     np.testing.assert_allclose(np.asarray(out.traj.x),

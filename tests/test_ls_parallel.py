@@ -1,4 +1,4 @@
-"""K-parallel line-search equivalence (VERDICT r4 #4).
+"""K-parallel line-search equivalence.
 
 ``Options.ls_parallel = K`` evaluates the first K backtracking trials in one
 vectorized residual pass and accepts the first passing trial; trials past K

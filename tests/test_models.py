@@ -120,7 +120,7 @@ def test_rollout_rk3():
 
 
 def test_quadrotor_smooth_clamp_converges():
-    """The quadrotor stationarity floor (VERDICT r3 #10), resolved.
+    """The quadrotor stationarity floor, resolved.
 
     With the reference's exact thrust clamp ``max(0, kf*w)``
     (``src/dynamics/quadrotor.jl:58-63``), the quad2_N15 config plateaus at

@@ -53,9 +53,9 @@ def test_mpc_warm_start_helps():
 
 
 def test_mpc_closedloop_collision_free_batched():
-    """Smoke version of benchmarks/results/mpc_closedloop.json (VERDICT r4
-    #6): a batched closed loop must keep the EXECUTED trajectories outside
-    the pairwise collision gate and converge each warm-started replan."""
+    """Closed-loop smoke test: a batched closed loop must keep the EXECUTED
+    trajectories outside the pairwise collision gate and converge each
+    warm-started replan."""
     import jax
     p = 2
     model = ag.unicycle_game(p=p)

@@ -1,4 +1,4 @@
-"""Adversarial line-search / penalty-schedule stress fuzz (VERDICT r4 #9).
+"""Adversarial line-search / penalty-schedule stress fuzz.
 
 Full solves engineered for the solver's worst paths: random INFEASIBLE
 starts (players spawned inside each other's collision radius), tight control
